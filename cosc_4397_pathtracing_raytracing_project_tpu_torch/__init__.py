@@ -7,6 +7,7 @@ the main path is a hand-written CUDA kernel for Hopper
 This package imports torch and never jax.
 """
 
+from .render.adaptive import AdaptiveRenderer
 from .render.engine import RenderConfig, Renderer
 from .render.state import RenderState
 from .scene import Scene, SceneDesc, load_scene_desc, parse_scene
@@ -17,6 +18,7 @@ __all__ = [
     "load_scene_desc",
     "parse_scene",
     "Renderer",
+    "AdaptiveRenderer",
     "RenderConfig",
     "RenderState",
 ]

@@ -3,7 +3,9 @@
 The JAX package's ``Scene`` and ``RenderState`` are pytrees; handed over as
 their leaves in NumPy, they become this port's tensors on one device, so both
 packages can render the same scene and continue the same render. Nothing
-here imports jax: the caller converts the leaves (``np.asarray``).
+here imports jax: the caller converts the leaves (``np.asarray``), or, for an
+adaptive render, hands over the JAX ``AdaptiveRenderer`` itself, whose
+arrays convert with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -79,3 +81,24 @@ def state_from_jax_arrays(accum, iteration, key_data, device) -> RenderState:
         iteration=int(iteration),
         seed=kernel_seed(last),
     )
+
+
+def adaptive_state_from_jax(renderer, device) -> dict:
+    """The state of a JAX ``AdaptiveRenderer`` as this port's tensors on
+    ``device``: the half-buffer accumulators ``acc_a``/``acc_b`` [n+1, 3]
+    f32, the per-tile sample counts ``counts`` [T+1] i32, the int32 kernel
+    ``seed`` and the dispatched-lane count ``budget_spent``. A port
+    ``AdaptiveRenderer`` of the same scene and configuration continues the
+    JAX render from it (``AdaptiveRenderer.load_state``)."""
+    device = torch.device(device)
+
+    def tensor(a, dtype):
+        return torch.tensor(np.asarray(a, dtype), device=device)
+
+    return {
+        "acc_a": tensor(renderer._acc_a, np.float32),
+        "acc_b": tensor(renderer._acc_b, np.float32),
+        "counts": tensor(renderer._counts, np.int32),
+        "seed": kernel_seed(int(np.asarray(renderer._seed).astype(np.int64))),
+        "budget_spent": int(renderer._lane_budget_spent),
+    }

@@ -1,12 +1,14 @@
 """Render configuration, the megakernel step and the host-side Renderer.
 
-Port of the JAX package's ``render/engine.py`` for the main path: a batch of
-samples is rendered by :func:`make_pallas_step`, which launches the
+Port of the JAX package's ``render/engine.py`` for analytic scenes: a batch
+of samples is rendered by :func:`make_pallas_step`, which launches the
 megakernel (``ops/cuda/megakernel.py``) once for every ``PALLAS_CHUNK``
 samples and adds each ``[N, 3]`` radiance sum into the accumulator. The
 pipeline keeps its JAX name, ``"pallas"``, so configurations carry over
-unchanged. Options the port does not carry yet raise ``NotImplementedError``
-naming their ROADMAP item.
+unchanged; it carries every estimator option of the megakernel except the
+environment map (NEE, refraction, depth of field, early exit, throughput
+gathering). Options the port does not carry yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ class RenderConfig:
     samples_per_launch: int = 10  # samples per Renderer.step
     intersector: str = "auto"  # 'bruteforce' | 'bvh' | 'auto'
     bvh_leaf_size: int = 4
-    gather_mode: str = "light_only"  # 'throughput' is not ported yet
+    gather_mode: str = "light_only"  # 'light_only' | 'throughput' (legacy)
     sky_strength: float = 0.0  # environment strength in light_only mode
     enable_refraction: bool = False
     mesh_ray_sort: bool = True
@@ -56,8 +58,10 @@ class RenderConfig:
 
     def resolve_pipeline(self, scene: Scene) -> str:
         """``"pallas"`` (the megakernel) for the analytic scenes this port
-        renders. Raises ``NotImplementedError`` for every pipeline and
-        option outside it, naming the ROADMAP item that brings it."""
+        renders, as the JAX package picks on its accelerator. Raises
+        ``NotImplementedError`` for every pipeline and option outside it,
+        naming the ROADMAP item that brings it, and ``ValueError`` for
+        ``nee`` with the throughput estimator, as the JAX kernel does."""
         if self.sampler not in ("independent", "sobol"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.env_mode not in ("exact", "split"):
@@ -88,7 +92,7 @@ class RenderConfig:
                     f"{field} is a mesh-pipeline option, not ported yet "
                     "(ROADMAP Queue 1 item 12)"
                 )
-        megakernel.kernel_options(self)  # raises for the estimator options
+        megakernel.kernel_options(self)  # raises for invalid estimator options
         return "pallas"
 
 
@@ -101,14 +105,14 @@ def make_pallas_step():
     num_samples) -> state``. It launches the kernel once for every
     ``PALLAS_CHUNK`` samples (iterations are 1-based, as in the reference)
     and adds each radiance sum into a new accumulator. The scene's host
-    tables are read once per scene object (``set_camera`` replaces the
-    scene, which repacks them)."""
-    packed_scene = packed = None
+    tables (with the light table under ``config.nee``) are read once per
+    scene object (``set_camera`` replaces the scene, which repacks them)."""
+    packed_key = packed = None
 
     def step(scene: Scene, state: RenderState, config: RenderConfig, num_samples: int):
-        nonlocal packed_scene, packed
-        if scene is not packed_scene:
-            packed_scene, packed = scene, megakernel.pack_scene(scene)
+        nonlocal packed_key, packed
+        if packed_key is None or packed_key[0] is not scene or packed_key[1] != config.nee:
+            packed_key, packed = (scene, config.nee), megakernel.pack_scene(scene, nee=config.nee)
         accum = state.accum
         done = 0
         while done < num_samples:
@@ -182,7 +186,7 @@ class Renderer:
 
         if config.dof is None:
             # resolve the auto gate: DOF is on exactly when the camera has a
-            # nonzero aperture (and then raises: not ported yet)
+            # nonzero aperture
             config = dataclasses.replace(
                 config, dof=bool(float(self.scene.camera.aperture) > 0.0)
             )

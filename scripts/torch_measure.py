@@ -20,6 +20,14 @@ events, each kernel row 20 timed 50-sample launches after one warm-up:
   render(1000) after a warm-up step, rays/s of each;
 - one render(1000) under torch.profiler: device time per kernel, and the
   device's idle share of the profiled wall;
+- the other kernel variants, 20 timed 50-sample launches each:
+  cornell_golden.txt with NEE, sobol and antialiasing; cornell_glass.txt
+  with a 0.3 lens (auto focus), refraction, NEE and sobol; cornell.txt with
+  the throughput estimator; the tile dispatch over 16 of golden's 32×64
+  tiles with NEE and sobol;
+- the NEE quality leg (golden, NEE, sobol, antialias, render(1000)) and the
+  adaptive leg (AdaptiveRenderer(golden, NEE + sobol).render(256)), each
+  once under torch.profiler: device time per kernel and idle share;
 - the card's name, power limit, SM clock and temperature after the run.
 
 Prints the readings as one JSON object and writes it to --out.
@@ -39,10 +47,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from cosc_4397_pathtracing_raytracing_project_tpu_torch import (  # noqa: E402
+    AdaptiveRenderer,
     RenderConfig,
     Renderer,
     Scene,
     load_scene_desc,
+    parse_scene,
+)
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.adaptive import (  # noqa: E402
+    make_tile_layout,
 )
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import build  # noqa: E402
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
@@ -82,6 +95,25 @@ def agreement(got, want):
         bit_identical=float((diff == 0).float().mean()),
         mean_rel=float(((mean_got - mean_want).abs() / mean_want.abs()).max()),
     )
+
+
+def profile(fn):
+    """Run ``fn`` once under torch.profiler: (device kernels [(name, device
+    us, count)], profiled wall s, idle share of the wall)."""
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [
+        (e.key, e.device_time_total, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+    ]
+    busy_us = sum(r[1] for r in rows)
+    return rows, wall, 1.0 - busy_us * 1e-6 / wall
 
 
 def smi(query):
@@ -153,22 +185,57 @@ def main() -> int:
     out["main_rays_per_s"] = stats([pixels * 1000 / w for w in walls])
 
     renderer.reset()
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        renderer.render(1000)
-        wall = time.perf_counter() - t0
-    rows = [
-        (e.key, e.device_time_total, e.count)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
-    ]
-    busy_us = sum(r[1] for r in rows)
+    rows, wall, idle = profile(lambda: renderer.render(1000))
     out["profiled_wall_s"] = wall
     out["profiled_device_kernels"] = rows
-    out["profiled_device_us"] = busy_us
-    out["profiled_idle_share"] = 1.0 - busy_us * 1e-6 / wall
+    out["profiled_device_us"] = sum(r[1] for r in rows)
+    out["profiled_idle_share"] = idle
+
+    def scene_text(name, aperture=None):
+        text = open(os.path.join(REPO, "scenes", name)).read()
+        if aperture is not None:  # as the CLI's --aperture: focal stays auto
+            text = text.replace("LOOKAT", f"APERTURE    {aperture}\nLOOKAT", 1)
+        return Scene.from_desc(parse_scene(text), device)
+
+    golden = scene_text("cornell_golden.txt")
+    variants = {
+        "nee_aa": (golden, RenderConfig(nee=True, antialias=True, sampler="sobol")),
+        "glass_dof_nee": (scene_text("cornell_glass.txt", 0.3), RenderConfig(
+            enable_refraction=True, dof=True, nee=True, sampler="sobol")),
+        "throughput": (scene, RenderConfig(gather_mode="throughput")),
+    }
+    for name, (sc, cfg) in variants.items():
+        opts = mk.kernel_options(cfg)
+        pk = mk.pack_scene(sc, nee=opts.nee)
+        out[f"kernel_{name}_ms"] = time_launches(
+            lambda: exact(pk, opts, SEED, 1, CHUNK, device), REPS
+        )
+    gpx, gpy, _, _ = make_tile_layout(800, 800)
+    ids = torch.arange(0, 16 * 20, 20, dtype=torch.int32, device=device)
+    bases = 1 + 7 * torch.arange(16, dtype=torch.int32, device=device)
+    tiles = (
+        torch.cat([ids, bases]),
+        torch.as_tensor(gpx, device=device)[ids.long()].reshape(-1),
+        torch.as_tensor(gpy, device=device)[ids.long()].reshape(-1),
+    )
+    opts = mk.kernel_options(RenderConfig(nee=True, sampler="sobol"))
+    pk = mk.pack_scene(golden, nee=True)
+    out["kernel_tiles16_ms"] = time_launches(
+        lambda: exact(pk, opts, SEED, 0, CHUNK, device, tiles=tiles), REPS
+    )
+
+    golden_path = os.path.join(REPO, "scenes", "cornell_golden.txt")
+    quality = Renderer(golden_path, RenderConfig(
+        samples_per_launch=200, antialias=True, sampler="sobol", nee=True), device=device)
+    quality.step(200)
+    quality.reset()
+    rows, wall, idle = profile(lambda: quality.render(1000))
+    out["quality_profile"] = dict(wall_s=wall, device_kernels=rows, idle_share=idle)
+    cfg_a = RenderConfig(samples_per_launch=256, sampler="sobol", nee=True)
+    AdaptiveRenderer(golden_path, cfg_a, device=device).render(256)  # warm-up
+    ada = AdaptiveRenderer(golden_path, cfg_a, device=device)
+    rows, wall, idle = profile(lambda: ada.render(256))
+    out["adaptive_profile"] = dict(wall_s=wall, device_kernels=rows, idle_share=idle)
     out["smi_after"] = smi("clocks.current.sm,power.draw,power.limit,temperature.gpu")
 
     text = json.dumps(out, indent=1)

@@ -106,14 +106,3 @@ def test_sample_batches_accumulate_in_order():
     finally:
         tmk._REFERENCE_BATCH = saved
     torch.testing.assert_close(split, whole, rtol=0, atol=0)
-
-
-@pytest.mark.parametrize(
-    "field, value",
-    [("nee", True), ("enable_refraction", True), ("dof", True),
-     ("early_exit", True), ("gather_mode", "throughput")],
-)
-def test_unported_estimator_options_raise(field, value):
-    scene = Scene.from_desc(parse_scene(CORNELL_SMALL), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmk.render_samples(scene, RenderConfig(**{field: value}), SEED, 1, 1)
