@@ -35,7 +35,27 @@ Phases, in order; any failure raises and exits non-zero:
    on cornell.txt), 1000 / 200 / 200 spp: finite, not black, rays/s;
 9. adaptive leg: AdaptiveRenderer(golden, sobol + NEE).render(256) against
    the uniform renderer at 256 spp (PSNR of both, K6 launches, wall);
-10. one JSON line describing each ported kernel, the card, the result line.
+10. the environment variants (kernels K3-K5) on scenes/env_spheres.txt
+   (800×800, depth 8, the 128×256 meadow map), kernel vs plain version at
+   2 spp, same tolerance: exact (independent, sobol, refraction), env NEE,
+   split with the background composited outside (no antialiasing) and
+   without it (antialias), and the tile dispatch with exact env over 16
+   tiles; then one 50-sample launch of kernel and plain version of each;
+11. environment legs: Renderer(env_spheres) render(1000) in exact, exact +
+   nee (env NEE) and split mode, rays/s and launches each;
+12. furnace on the card: a constant map c over a diffuse sphere of albedo
+   0.6, exact and env NEE, 1000 spp: background equal to c within 1e-5,
+   the body's centre within 2% of 0.6·c;
+13. environment gates: the exact render's primary-miss pixels equal the
+   split composite's within rtol 3e-4 (polynomial lookup vs library
+   trigonometry); the split mean within 2% of the env-NEE mean at
+   tests/test_envmap.py's 64×64, depth 4 (the 800×800 gap is printed: the
+   split's specular bounces miss the suns' glints); the env-NEE mean
+   between the exact means at depth 8 and depth 9, with the slack
+   ENV_NEE_SLACK (NEE reaches one bounce further);
+14. environment adaptive leg: AdaptiveRenderer(env_spheres, exact,
+   sobol).render(256) through the tile dispatch with exact env;
+15. one JSON line describing each ported kernel, the card, the result line.
 
 Every leg sets the launch counts to 0 just before it and reads them just
 after; a leg whose kernel variant was never launched fails. It needs a CUDA
@@ -68,6 +88,18 @@ PSNR_FLOOR_NEE_1000 = 36.5
 # reach; its last vertex adds part of one more bounce (see phase 7)
 NEE_MEAN_RTOL = 0.01
 APERTURE = 0.3  # the glass leg's lens radius (--aperture 0.3, auto focus)
+# environment gates: the exact background against the library-trigonometry
+# composite (the bound of tests/test_envmap.py's background rows), split vs
+# env NEE (tests/test_envmap.py's split gate), the furnace
+ENV_BG_RTOL = 3e-4
+ENV_BG_ATOL = 1e-5
+SPLIT_MEAN_RTOL = 0.02
+FURNACE_BG_RTOL = 1e-5
+FURNACE_BODY_RTOL = 0.02
+# env NEE's channel means lie between the exact estimator's at depth 8 and
+# depth 9 (NEE at the last vertex adds part of bounce 9); slack on each side
+# for the Monte-Carlo noise of three 1000-spp renders under meadow's sun
+ENV_NEE_SLACK = 0.01
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet, 700 W): float32
 # outside the tensor cores, and device memory.
@@ -88,8 +120,17 @@ FLOPS_SHADOW_SPHERE = 28
 FLOPS_NORMALIZE = 11
 FLOPS_SCATTER = 70
 FLOPS_NEE = 75
+# environment work: one escape lookup (two polynomial atan2s, the bilinear
+# blend), the nearest-texel pdf lookup, one SH-9 sky evaluation, and the
+# shading arithmetic of an env NEE / sun shadow ray beside its per-geom
+# tests
+FLOPS_ENV_LOOKUP = 96
+FLOPS_ENV_PDF = 61
+FLOPS_SH9 = 74
+FLOPS_ENV_NEE = 27
+FLOPS_SUN = 17
 
-PTX_VARIANT = re.compile(r"pt_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E")
+PTX_VARIANT = re.compile(r"pt_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E")
 
 
 def _check_close(got, want, what):
@@ -143,14 +184,19 @@ def _bound(packed, opts, work, out_bytes, in_bytes):
         FLOPS_RAY[a] + (FLOPS_CUBE[a] if k < packed.num_cubes else FLOPS_SPHERE[a])
         for k, a in enumerate(aligned)
     )
-    shadow = FLOPS_NEE + sum(
+    occlusion = sum(
         FLOPS_RAY[a] + (FLOPS_SHADOW_CUBE if k < packed.num_cubes else FLOPS_SHADOW_SPHERE)
         for k, a in enumerate(aligned)
     )
     flops = (
         int(work.get("isect", 0)) * isect
         + int(work.get("scatter", 0)) * FLOPS_SCATTER
-        + int(work.get("shadow", 0)) * shadow
+        + int(work.get("shadow", 0)) * (FLOPS_NEE + occlusion)
+        + int(work.get("env_shadow", 0)) * (FLOPS_ENV_NEE + occlusion)
+        + int(work.get("sun_shadow", 0)) * (FLOPS_SUN + occlusion)
+        + int(work.get("env_lookup", 0)) * FLOPS_ENV_LOOKUP
+        + int(work.get("env_pdf", 0)) * FLOPS_ENV_PDF
+        + int(work.get("sh", 0)) * FLOPS_SH9
     )
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = (out_bytes + in_bytes) / PEAK_BYTES_PER_S * 1e3
@@ -160,12 +206,14 @@ def _bound(packed, opts, work, out_bytes, in_bytes):
 def _ptxas_report(log_text):
     """(variant name, registers, spill line) per kernel in nvcc's log."""
     names = ("nee", "refraction", "dof", "throughput", "tiles")
+    env_names = ("", "env_exact", "env_nee", "env_split")
     rows, current, spill = [], None, ""
     for line in log_text.splitlines():
         m = PTX_VARIANT.search(line)
         if m:
-            flags = [b == "1" for b in m.groups()]
-            current = "+".join(n for n, f in zip(names, flags) if f) or "main"
+            flags = [b == "1" for b in m.groups()[:5]]
+            parts = [n for n, f in zip(names, flags) if f] + [env_names[int(m.group(6))]]
+            current = "+".join(p for p in parts if p) or "main"
             spill = ""
         elif current and "spill" in line:
             spill = line.strip()
@@ -173,6 +221,236 @@ def _ptxas_report(log_text):
             rows.append((current, re.search(r"Used (\d+) registers", line).group(1), spill))
             current = None
     return rows
+
+
+def _environment_phases(device, seed, chunk, pix, scene_path):
+    """Phases 10-14: the environment variants (K3-K5) on env_spheres.txt.
+    Returns their errors, timings, launch counts and gate readings."""
+    import numpy as np
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
+        AdaptiveRenderer,
+        RenderConfig,
+        Renderer,
+        Scene,
+        load_scene_desc,
+        parse_scene,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import write_hdr
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.adaptive import (
+        make_tile_layout,
+    )
+
+    env_path = scene_path("env_spheres.txt")
+    print("[10] environment variants, kernel vs plain version, env_spheres.txt 800x800, "
+          "depth 8, 2 spp")
+    scene = Scene.from_desc(load_scene_desc(env_path), device)
+    cases = {
+        "exact": RenderConfig(),
+        "exact sobol": RenderConfig(sampler="sobol"),
+        "exact refraction": RenderConfig(enable_refraction=True),
+        "env NEE": RenderConfig(nee=True),
+        "split composite": RenderConfig(env_mode="split"),
+        "split aa": RenderConfig(env_mode="split", antialias=True),
+    }
+    errs, times, prepared = {}, {}, {}
+    for what, cfg in cases.items():
+        opts = mk.kernel_options(cfg, scene)
+        pk = mk.pack_scene(scene, nee=opts.nee, config=cfg)
+        got = mk.KERNEL(pk, opts, seed, 1, 2, device)
+        want = mk.render_samples_reference(pix, pk, opts, seed, 1, 2)
+        torch.cuda.synchronize()
+        errs[what] = _check_close(got, want, f"{what} [{mk.variant_name(opts)}]")
+        prepared[what] = (pk, opts)
+    # the tile dispatch with the exact environment: 16 of the 32x64 tiles
+    gpx, gpy, _gidx, _ = make_tile_layout(*scene.camera.resolution)
+    cfg_t = RenderConfig(sampler="sobol")
+    opts_t = mk.kernel_options(cfg_t, scene)
+    pk_t = mk.pack_scene(scene, config=cfg_t)
+    ids = (torch.arange(16, dtype=torch.int32, device=device) * 20) % gpx.shape[0]
+    bases = 1 + 7 * torch.arange(16, dtype=torch.int32, device=device)
+    tpx = torch.as_tensor(gpx, device=device)[ids.long()].reshape(-1)
+    tpy = torch.as_tensor(gpy, device=device)[ids.long()].reshape(-1)
+    table = torch.cat([ids, bases])
+    got = mk.KERNEL(pk_t, opts_t, seed, 0, 2, device, tiles=(table, tpx, tpy))
+    want = mk.render_tiles_reference(tpx, tpy, ids, bases, pk_t, opts_t, seed, 2)
+    errs["exact tiles"] = _check_close(got, want, "exact tiles, 16 tiles [tiles+env_exact]")
+    env_bytes = lambda pk: (pk.env.height * pk.env.width * 16  # noqa: E731
+                            if pk.env.mode == "exact" else 0)
+    for what, (pk, opts) in prepared.items():
+        # env NEE's rows are built once here and passed in, so the time is
+        # the kernel's own (the Renderer builds them once per step)
+        rows = (mk.build_env_nee_rows(pk.env.envmap, seed, 1, chunk, opts.trace_depth)
+                if opts.env_nee else None)
+        k_ms = _time_ms(
+            lambda: mk.KERNEL(pk, opts, seed, 1, chunk, device, env_rows=rows), reps=3)
+        p_ms = _time_ms(
+            lambda: mk.render_samples_reference(pix, pk, opts, seed, 1, chunk), reps=1)
+        w = {}
+        mk.render_samples_reference(pix, pk, opts, seed, 1, chunk, stats=w)
+        rows = chunk * opts.trace_depth * 32 if opts.env_nee else 0
+        times[what] = (k_ms, p_ms, _bound(pk, opts, w, pix.numel() * 12,
+                                          env_bytes(pk) + rows))
+        print(f"  {what}: one {chunk}-sample launch: kernel {k_ms:.3f} ms, plain version "
+              f"{p_ms:.1f} ms; bound {times[what][2][0]:.4f} ms ({times[what][2][1]})")
+        if opts.env_nee:
+            r_ms = _time_ms(lambda: mk.build_env_nee_rows(
+                pk.env.envmap, seed, 1, chunk, opts.trace_depth), reps=3)
+            print(f"  {what}: building the {chunk * opts.trace_depth} shared rows: {r_ms:.3f} ms")
+
+    print("[11] environment legs: env_spheres.txt, samples_per_launch=200, 1000 spp")
+    legs = {
+        "exact": (RenderConfig(samples_per_launch=200), "env_exact"),
+        "env NEE": (RenderConfig(samples_per_launch=200, nee=True), "env_nee"),
+        "split": (RenderConfig(samples_per_launch=200, env_mode="split"), "env_split"),
+    }
+    launches, images = {}, {}
+    for name, (cfg, variant) in legs.items():
+        r = Renderer(env_path, cfg, device=device)
+        r.step(200)  # warm-up: the split tables and composite are derived here
+        r.reset()
+        mk.KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        r.render(1000)
+        wall = time.perf_counter() - t0
+        by_variant = dict(mk.KERNEL.launches_by_variant)
+        launches[name] = sum(by_variant.values())
+        images[name] = r.linear_image()
+        print(f"  {name}: {r.scene.camera.pixel_count * 1000 / wall:.6e} rays/s, "
+              f"{wall:.4f} s; mean {images[name].mean():.6f}; launches {by_variant}")
+        if by_variant.get(variant, 0) <= 0:
+            raise AssertionError(f"the {name} leg never launched {variant}")
+        if not (np.isfinite(images[name]).all() and images[name].mean() > 0.0):
+            raise AssertionError(f"the {name} leg's image is not finite or lit")
+
+    print("[12] furnace: constant map 0.7, diffuse sphere albedo 0.6, 1000 spp")
+    furnace_dir = os.path.join(REPO, "build", "furnace")
+    os.makedirs(furnace_dir, exist_ok=True)
+    write_hdr(os.path.join(furnace_dir, "const.hdr"), np.full((8, 16, 3), 0.7, np.float32))
+    furnace = parse_scene(FURNACE_SCENE, base_dir=furnace_dir)
+    c = float(furnace.env_image[0, 0, 0])
+    for name, nee in (("exact", False), ("env NEE", True)):
+        mk.KERNEL.reset_counts()
+        r = Renderer(furnace, RenderConfig(samples_per_launch=200, nee=nee), seed=1,
+                     device=device)
+        r.render(1000)
+        img = r.linear_image()
+        h = img.shape[0]
+        corner = img[:3, :3]
+        body = float(img[h // 2 - 2: h // 2 + 2, h // 2 - 2: h // 2 + 2].mean())
+        bg_err = float(np.abs(corner / c - 1.0).max())
+        body_err = abs(body / (0.6 * c) - 1.0)
+        print(f"  {name}: background rel err {bg_err:.3e} (bound {FURNACE_BG_RTOL}), body "
+              f"{body:.6f} vs {0.6 * c:.6f}, rel err {body_err:.4e} (bound {FURNACE_BODY_RTOL}); "
+              f"launches {dict(mk.KERNEL.launches_by_variant)}")
+        if bg_err > FURNACE_BG_RTOL or body_err > FURNACE_BODY_RTOL:
+            raise AssertionError(f"furnace ({name}) fails")
+
+    print("[13] environment gates")
+    split_pk = mk.pack_scene(scene, config=RenderConfig(env_mode="split"))
+    miss = split_pk.env.bg_miss.cpu().numpy() > 0.5
+    exact_bg = images["exact"].reshape(-1, 3)[miss]
+    comp_bg = split_pk.env.bg.cpu().numpy()[miss]
+    bg_rel = float(np.max(np.abs(exact_bg - comp_bg) - ENV_BG_ATOL
+                          - ENV_BG_RTOL * np.abs(comp_bg)))
+    print(f"  exact background vs split composite over {int(miss.sum())} primary-miss pixels: "
+          f"max |d| {np.abs(exact_bg - comp_bg).max():.3e}, max rel "
+          f"{np.max(np.abs(exact_bg - comp_bg) / np.abs(comp_bg)):.3e} (rtol {ENV_BG_RTOL}, "
+          f"atol {ENV_BG_ATOL})")
+    if bg_rel > 0.0:
+        raise AssertionError("the exact background leaves the split composite's bound")
+    # split vs env NEE: gated at tests/test_envmap.py's configuration (64x64,
+    # depth 4); at 800x800 the split's documented approximation shows: its
+    # specular bounces see the SH sky, not the suns, so the mirror sphere's
+    # sun glint, which 800x800 pixel centres resolve, is missing (printed,
+    # with the means of the images clipped at 1 as the saved PNG clips them)
+    m_split = float(images["split"].mean())
+    m_nee = float(images["env NEE"].mean())
+    c_split = float(np.clip(images["split"], 0.0, 1.0).mean())
+    c_nee = float(np.clip(images["env NEE"], 0.0, 1.0).mean())
+    print(f"  800x800 depth 8: split mean {m_split:.6f} vs env NEE {m_nee:.6f} "
+          f"({m_split / m_nee - 1.0:+.4e}); clipped at 1: {c_split:.6f} vs {c_nee:.6f} "
+          f"({c_split / c_nee - 1.0:+.4e})")
+    small = load_scene_desc(env_path)
+    small.camera.resolution = (64, 64)
+    small_means = {}
+    for name, extra in (("split", dict(env_mode="split")), ("env NEE", dict(nee=True))):
+        r = Renderer(small, RenderConfig(samples_per_launch=200, trace_depth=4, **extra),
+                     device=device)
+        r.render(1000)
+        small_means[name] = float(r.linear_image().mean())
+    split_gap = abs(small_means["split"] / small_means["env NEE"] - 1.0)
+    print(f"  64x64 depth 4, 1000 spp: split mean {small_means['split']:.6f} vs env NEE "
+          f"{small_means['env NEE']:.6f}: {split_gap:.4e} (bound {SPLIT_MEAN_RTOL})")
+    if split_gap > SPLIT_MEAN_RTOL:
+        raise AssertionError("the split mean leaves 2% of the env-NEE mean")
+    deeper = Renderer(env_path, RenderConfig(samples_per_launch=200, trace_depth=9),
+                      device=device)
+    deeper.render(1000)
+    means_nee = images["env NEE"].reshape(-1, 3).mean(0)
+    means_d8 = images["exact"].reshape(-1, 3).mean(0)
+    means_d9 = deeper.linear_image().reshape(-1, 3).mean(0)
+    below = float((1.0 - means_nee / means_d8).max())
+    above = float((means_nee / means_d9 - 1.0).max())
+    print(f"  channel means: env NEE depth 8 {means_nee.tolist()}, exact depth 8 "
+          f"{means_d8.tolist()}, depth 9 {means_d9.tolist()}; below depth 8 by {below:.4e}, "
+          f"above depth 9 by {above:.4e} (slack {ENV_NEE_SLACK} each)")
+    if below > ENV_NEE_SLACK or above > ENV_NEE_SLACK:
+        raise AssertionError("env NEE's channel means leave the depth-8..9 bracket")
+
+    print("[14] environment adaptive leg: env_spheres.txt, exact, sobol, render(256)")
+    mk.KERNEL.reset_counts()
+    ada = AdaptiveRenderer(env_path, RenderConfig(samples_per_launch=256, sampler="sobol"),
+                           device=device)
+    t0 = time.perf_counter()
+    ada.render(256)
+    ada_wall = time.perf_counter() - t0
+    ada_launches = dict(mk.KERNEL.launches_by_variant)
+    ada_img = ada.linear_image()
+    spp_map = ada.spp_map()
+    print(f"  avg {ada.avg_spp:.2f} spp (min {spp_map.min()} max {spp_map.max()}), mean "
+          f"{ada_img.mean():.6f}; launches {ada_launches}; wall {ada_wall:.4f} s")
+    if ada_launches.get("tiles+env_exact", 0) <= 0:
+        raise AssertionError("the environment adaptive leg never launched tiles+env_exact")
+    if not (np.isfinite(ada_img).all() and ada_img.mean() > 0.0) or spp_map.min() < 64:
+        raise AssertionError("the environment adaptive image is malformed")
+    return {"errs": errs, "times": times, "launches": launches,
+            "adaptive_launches": sum(ada_launches.values())}
+
+
+# tests/test_envmap.py's furnace: a diffuse sphere under a constant map
+FURNACE_SCENE = """MATERIAL 0
+RGB         0.6 0.6 0.6
+SPECEX      0
+SPECRGB     0 0 0
+REFL        0
+REFR        0
+REFRIOR     0
+EMITTANCE   0
+
+ENVIRONMENT
+FILE const.hdr
+STRENGTH 1
+
+CAMERA
+RES         32 32
+FOVY        30
+ITERATIONS  64
+DEPTH       8
+FILE        furnace
+EYE         0 0 6
+LOOKAT      0 0 0
+UP          0 1 0
+
+OBJECT 0
+sphere
+material 0
+TRANS       0 0 0
+ROTAT       0 0 0
+SCALE       3 3 3
+"""
 
 
 def main() -> int:
@@ -212,8 +490,10 @@ def main() -> int:
     report = _ptxas_report(build.log_path(mk.KERNEL.name).read_text())
     for variant, regs, spill in report:
         print(f"  ptxas: {variant}: {regs} registers; {spill}")
-    if len(report) != 24:
-        raise AssertionError(f"expected 24 kernel variants in ptxas' report, got {len(report)}")
+    if len(report) != 44:
+        raise AssertionError(f"expected 44 kernel variants in ptxas' report, got {len(report)}")
+    main_row = [r for r in report if r[0] == "main"]
+    print(f"  main variant: {main_row}")
 
     # 2. kernel vs plain version at the main path's shapes
     print("[2] kernel vs plain version, cornell.txt 800x800, depth 8, 2 spp")
@@ -479,8 +759,10 @@ def main() -> int:
     if spp_map.min() < 64:  # the warm-up: a quarter of the budget on every tile
         raise AssertionError("a tile got less than the warm-up's samples")
 
-    # 10. kernels, then the result
-    print(f"[10] peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
+    env = _environment_phases(device, seed, chunk, pix, scene_path)
+
+    # 15. kernels, then the result
+    print(f"[15] peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
           f"total {time.perf_counter() - t_start:.1f} s")
     src = "cosc_4397_pathtracing_raytracing_project_tpu/ops/pallas/megakernel.py"
 
@@ -500,7 +782,16 @@ def main() -> int:
               max(errs[k] for k in "cdef"), times["c"]),
         entry("K2 megakernel[nee]", 1554, sum(nee_launches.values()),
               max(errs[k] for k in "ab"), times["a"]),
-        entry("K6 megakernel[tiles]", 2173, sum(ada_launches.values()), errs["g"], times["g"]),
+        entry("K3 megakernel[env exact]", 1055, env["launches"]["exact"],
+              max(env["errs"][k] for k in ("exact", "exact sobol", "exact refraction")),
+              env["times"]["exact"]),
+        entry("K4 megakernel[env nee]", 1673, env["launches"]["env NEE"], env["errs"]["env NEE"],
+              env["times"]["env NEE"]),
+        entry("K5 megakernel[env split]", 1312, env["launches"]["split"],
+              max(env["errs"][k] for k in ("split composite", "split aa")),
+              env["times"]["split composite"]),
+        entry("K6 megakernel[tiles]", 2173, sum(ada_launches.values()) + env["adaptive_launches"],
+              max(errs["g"], env["errs"]["exact tiles"]), times["g"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

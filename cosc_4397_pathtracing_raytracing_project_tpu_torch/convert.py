@@ -15,6 +15,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .ops.envmap import EnvMap
 from .render.state import RenderState, kernel_seed
 from .scene.structs import Camera, GeomBatch, Materials, Scene
 
@@ -32,17 +33,15 @@ def scene_from_jax_arrays(d: Mapping, device) -> Scene:
     ``d`` is nested like the JAX pytree: ``d["cubes"]`` and ``d["spheres"]``
     map each ``GeomBatch`` field to an array, ``d["materials"]`` each
     ``Materials`` field, and ``d["camera"]`` each ``Camera`` field plus
-    ``"resolution"`` (width, height). A non-empty ``d["triangles"]`` or an
-    ``d["envmap"]`` raises ``NotImplementedError``: this port does not render
-    them yet."""
+    ``"resolution"`` (width, height). ``d["envmap"]``, if not None, is the
+    JAX ``EnvMap`` (or a mapping of its fields ``img``, ``alias_prob``,
+    ``alias_idx``, ``pdf``, ``strength``); its arrays carry over unchanged.
+    A non-empty ``d["triangles"]`` raises ``NotImplementedError``: this port
+    does not render meshes yet."""
     tris = d.get("triangles")
     if tris is not None and np.asarray(tris["material_id"]).shape[0]:
         raise NotImplementedError(
             "triangle meshes are not ported yet (ROADMAP Queue 1 item 12)"
-        )
-    if d.get("envmap") is not None:
-        raise NotImplementedError(
-            "ENVIRONMENT maps are not ported yet (ROADMAP Queue 1 item 11)"
         )
     device = torch.device(device)
 
@@ -57,6 +56,16 @@ def scene_from_jax_arrays(d: Mapping, device) -> Scene:
             }
         )
 
+    env = d.get("envmap")
+    if env is not None:
+        fields = env if isinstance(env, Mapping) else vars(env)
+        env = EnvMap(
+            img=tensor(fields["img"], np.float32),
+            alias_prob=tensor(fields["alias_prob"], np.float32),
+            alias_idx=tensor(fields["alias_idx"], np.int32),
+            pdf=tensor(fields["pdf"], np.float32),
+            strength=tensor(fields["strength"], np.float32),
+        )
     cam = d["camera"]
     w, h = (int(v) for v in cam["resolution"])
     return Scene(
@@ -67,6 +76,7 @@ def scene_from_jax_arrays(d: Mapping, device) -> Scene:
             resolution=(w, h),
             **{f: tensor(cam[f], np.float32) for f in _CAMERA_FIELDS},
         ),
+        envmap=env,
     )
 
 

@@ -9,16 +9,35 @@
 // rr_start_depth, the Owen-scrambled Sobol sampler on the leading n_ld depths
 // (or the counter-hash streams alone), a hoisted primary hit without
 // antialiasing or lens and sub-pixel jitter with it, a thin-lens camera
-// (DOF), dielectric refraction, and next-event estimation (NEE) of the
-// analytic emitters with the balance heuristic. No environment map.
+// (DOF), dielectric refraction, next-event estimation (NEE) of the analytic
+// emitters with the balance heuristic, and an equirectangular environment
+// map (kernels K3-K5 of the TPU kernel's feature split).
 //
-// Compile-time variants: pt_megakernel<NEE, REFR, DOF, LEGACY, TILES>, one
-// instantiation per valid combination (NEE excludes LEGACY), so the main
-// path's variant <false x5> carries none of the others' registers. TILES
-// renders K chosen tiles (the adaptive sampler's dispatch): thread p renders
-// lane p % tile of grid step g = p / tile, whose pixel coordinates come from
+// Compile-time variants: pt_megakernel<NEE, REFR, DOF, LEGACY, TILES, ENV>,
+// one instantiation per valid combination, so the main path's variant
+// <false x5, 0> carries none of the others' registers. TILES renders K
+// chosen tiles (the adaptive sampler's dispatch): thread p renders lane
+// p % tile of grid step g = p / tile, whose pixel coordinates come from
 // px/py, hash tile key and 1-based iteration base from the device table
-// tiles[g] and tiles[K + g].
+// tiles[g] and tiles[K + g]. ENV is the environment:
+//   0 none: the gradient sky scaled by sky_strength;
+//   1 exact (K3, env_lookup/accumulate of the TPU kernel): a path's escape
+//     records its throughput and direction, and one bilinear lookup of the
+//     strength-folded map (device memory, 393 KB for the 128x256 meadow
+//     map, resident in L2; plain global loads, no texture unit, whose
+//     bilinear weights have 8 fractional bits) settles each sample;
+//   2 exact + env NEE (K4): also, at every diffuse vertex, a shadow ray to
+//     the (iteration, depth) row's shared alias-sampled direction (a device
+//     table [num_samples * trace_depth, 8] that the wrapper builds before the
+//     launch; the row read is uniform across a warp), weighted by the
+//     balance heuristic, and the escape weighted against the sampler's
+//     nearest-texel pdf;
+//   3 split (K5): delta suns (one shadow ray each at every diffuse vertex)
+//     and an SH-9 residual sky on misses; with bg_external the depth-0
+//     background is composited outside the kernel.
+// The valid set follows the JAX wrapper's raises: NEE excludes LEGACY; every
+// ENV excludes LEGACY; exact (1, 2) excludes analytic NEE; env NEE (2) and
+// split (3) exclude TILES.
 //
 // Output: out[p*3 + c] = sum over samples iter_base .. iter_base+num_samples-1
 // (ascending, f32) of the path radiance of pixel p (of its terminal
@@ -70,6 +89,7 @@
 #define PT_GF 21  // floats per geom: inverse transform rows (12) + inverse-transpose (9)
 #define PT_MF 10  // floats per material: color(3) spec(3) refl refr emit ior
 #define PT_LF 26  // floats per light row: A(9) translation(3) A^-T(9) |det A| Le(3) pdf
+#define PT_MAX_SUNS 32
 #define PT_BLOCK 128
 
 constexpr float kMiss = 1e30f;
@@ -120,10 +140,33 @@ struct TileArgs {
 };
 struct NoTiles {};
 
+// ENV 1/2: the strength-folded radiance rad[(y*w + x)*3 + c], the sampler's
+// pdf[y*w + x] and (ENV 2) env NEE's rows[(s*trace_depth + depth)*8 + k]
+// (dir xyz, bilinear radiance rgb, pdf, 0), all device memory.
+struct EnvExact {
+  const float* rad;
+  const float* pdf;
+  const float* rows;
+  int h;
+  int w;
+};
+// ENV 3, by value: suns (dx, dy, dz, Er, Eg, Eb) and the 3 x 9 SH
+// coefficients (sh[c*9], the first term, already multiplied by Y00).
+struct EnvSplit {
+  float sun[PT_MAX_SUNS * 6];
+  float sh[27];
+  int num_suns;
+  int bg_external;
+};
+struct NoEnv {};
+
 template <bool NEE>
 using LightsArg = typename std::conditional<NEE, LightTable, NoLights>::type;
 template <bool TILES>
 using TilesArg = typename std::conditional<TILES, TileArgs, NoTiles>::type;
+template <int ENV>
+using EnvArg = typename std::conditional<
+    ENV == 0, NoEnv, typename std::conditional<ENV == 3, EnvSplit, EnvExact>::type>::type;
 
 struct Options {
   int n;
@@ -141,15 +184,16 @@ struct Options {
   float sky_strength;
 };
 
-// The largest parameter block (NEE + TILES) passes 4 KB: kernel parameters
-// up to 32764 bytes need CUDA 12.1 or later and a Volta or later card.
+// The largest parameter block (NEE + TILES, or NEE + split) passes 4 KB:
+// kernel parameters up to 32764 bytes need CUDA 12.1 or later and a Volta or
+// later card.
 static_assert(sizeof(Options) + sizeof(SceneTables) + sizeof(LightTable) + sizeof(TileArgs) +
-                      sizeof(float*) + 64 <=
+                      sizeof(EnvSplit) + sizeof(float*) + 64 <=
                   32764,
               "kernel parameter block exceeds the 32764-byte limit");
 #if defined(CUDART_VERSION) && CUDART_VERSION < 12010
 static_assert(sizeof(Options) + sizeof(SceneTables) + sizeof(LightTable) + sizeof(TileArgs) +
-                      sizeof(float*) <=
+                      sizeof(EnvSplit) + sizeof(float*) <=
                   4096,
               "kernel parameters above 4 KB need CUDA 12.1 or later");
 #endif
@@ -607,12 +651,132 @@ static __device__ __forceinline__ void sample_light(const LightRow& l, float u_l
   ln[2] = un2 * rnn;
 }
 
-template <bool NEE, bool REFR, bool DOF, bool LEGACY, bool TILES>
+// The TPU kernel's polynomial atan2 (_patan2, megakernel.py:76-104): a
+// degree-9 fit of atan(t)/t in t^2, Horner from the top coefficient, with
+// the octant reduction; (0, 0) -> 0. Each constant is the float nearest the
+// double the JAX code writes (a cast of the double literal, as jnp.float32).
+static __device__ __forceinline__ float patan2(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const bool swap = ay > ax;
+  const float num = swap ? ax : ay;
+  const float den = jmax(swap ? ay : ax, 1e-30f);
+  const float t = num / den;
+  const float s = t * t;
+  float p = (float)-0.0017213223616973183;
+  p = p * s + (float)0.010544175519843985;
+  p = p * s + (float)-0.030384225558022983;
+  p = p * s + (float)0.05703403618375145;
+  p = p * s + (float)-0.08340029963538047;
+  p = p * s + (float)0.1092607635073435;
+  p = p * s + (float)-0.14257992653960597;
+  p = p * s + (float)0.199977505037471;
+  p = p * s + (float)-0.33333254080432473;
+  p = p * s + (float)0.9999999930825906;
+  float r = p * t;
+  r = swap ? (float)(3.14159265358979323846 * 0.5) - r : r;
+  r = x < 0.0f ? (float)3.14159265358979323846 - r : r;
+  return y < 0.0f ? -r : r;
+}
+
+// (u, v) of a direction: u = 0.5 + atan2(x, -z) / 2pi, v = acos(y) / pi,
+// acos through patan2 (_pacos).
+static __device__ __forceinline__ void env_uv(float dx, float dy, float dz, float* u, float* v) {
+  *u = 0.5f + patan2(dx, -dz) * (float)(1.0 / 6.283185307179586);
+  const float c = jmin(jmax(dy, -1.0f), 1.0f);
+  *v = patan2(sqrtf(jmax((1.0f - c) * (1.0f + c), 0.0f)), c) * (float)(1.0 / 3.14159265358979323846);
+}
+
+// Bilinear radiance at an escape direction (K3; the TPU kernel's env_lookup):
+// wrap in azimuth, clamp at the poles. Its one-hot rows sum the weights of
+// equal indices, so at the pole clamp (y0 == y1) the row weight is
+// (1-ty)+ty; its matrix product becomes two-term sums per column and row.
+static __device__ void env_lookup(const EnvExact& e, float dx, float dy, float dz, float* rgb) {
+  float u, v;
+  env_uv(dx, dy, dz, &u, &v);
+  const int w = e.w, h = e.h;
+  const float fx = u * (float)w - 0.5f;
+  const float fy = v * (float)h - 0.5f;
+  const float x0 = floorf(fx);
+  const float y0 = floorf(fy);
+  const float tx = fx - x0;
+  const float ty = fy - y0;
+  int x0i = (int)x0;
+  x0i = x0i < 0 ? w - 1 : min(x0i, w - 1);
+  const int x1i = x0i + 1 > w - 1 ? 0 : x0i + 1;
+  const int y0i = min(max((int)y0, 0), h - 1);
+  const int y1i = min(y0i + 1, h - 1);
+  const bool same_y = y0i == y1i;
+  const bool same_x = x0i == x1i;
+  const float wy0 = same_y ? (1.0f - ty) + ty : 1.0f - ty;
+  const float wx0 = same_x ? (1.0f - tx) + tx : 1.0f - tx;
+  const float* r00 = e.rad + (y0i * w + x0i) * 3;
+  const float* r01 = e.rad + (y0i * w + x1i) * 3;
+  const float* r10 = e.rad + (y1i * w + x0i) * 3;
+  const float* r11 = e.rad + (y1i * w + x1i) * 3;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float col0 = __ldg(r00 + c) * wy0;
+    float col1 = __ldg(r01 + c) * wy0;
+    if (!same_y) {
+      col0 = col0 + __ldg(r10 + c) * ty;
+      col1 = col1 + __ldg(r11 + c) * ty;
+    }
+    const float left = wx0 * col0;
+    rgb[c] = same_x ? left : left + tx * col1;
+  }
+}
+
+// The sampler's pdf at an escape direction (K4's MIS partner; the TPU
+// kernel's env_pdf_lookup): the nearest texel, no -0.5 offset, clamped.
+static __device__ __forceinline__ float env_pdf_lookup(const EnvExact& e, float dx, float dy,
+                                                       float dz) {
+  float u, v;
+  env_uv(dx, dy, dz, &u, &v);
+  const int xi = min(max((int)(u * (float)e.w), 0), e.w - 1);
+  const int yi = min(max((int)(v * (float)e.h), 0), e.h - 1);
+  return __ldg(e.pdf + yi * e.w + xi);
+}
+
+// SH-9 residual sky of the split mode (ops.envmap.sh9_eval): the shared
+// basis, then 8 multiply-adds per channel after the first term.
+static __device__ __forceinline__ float sh9_channel(const float* c, const float* b) {
+  float acc = c[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) acc = acc + c[i] * b[i];
+  return acc;
+}
+static __device__ __forceinline__ void sh9_eval(const EnvSplit& e, float x, float y, float z,
+                                                float* rgb) {
+  const float c1 = (float)0.4886025119029199;
+  const float c2 = (float)1.0925484305920792;
+  const float c3 = (float)0.31539156525252005;
+  const float c4 = (float)0.5462742152960396;
+  float b[9];
+  b[0] = 0.0f;  // the first term is folded into the coefficient
+  b[1] = c1 * y;
+  b[2] = c1 * z;
+  b[3] = c1 * x;
+  b[4] = c2 * x * y;
+  b[5] = c2 * y * z;
+  b[6] = c3 * (3.0f * z * z - 1.0f);
+  b[7] = c2 * x * z;
+  b[8] = c4 * (x * x - y * y);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rgb[c] = sh9_channel(e.sh + 9 * c, b);
+}
+
+template <bool NEE, bool REFR, bool DOF, bool LEGACY, bool TILES, int ENV>
 __global__ void __launch_bounds__(PT_BLOCK)
     pt_megakernel(const __grid_constant__ Options o, const __grid_constant__ SceneTables sc,
                   const __grid_constant__ LightsArg<NEE> lt, const __grid_constant__ TilesArg<TILES> ta,
-                  float* __restrict__ out) {
+                  const __grid_constant__ EnvArg<ENV> env, float* __restrict__ out) {
   static_assert(!(NEE && LEGACY), "nee requires gather_mode='light_only'");
+  static_assert(ENV == 0 || !LEGACY, "an environment requires gather_mode='light_only'");
+  static_assert(!(NEE && (ENV == 1 || ENV == 2)), "exact env excludes analytic NEE");
+  static_assert(!(TILES && ENV >= 2), "the tile dispatch carries only exact env");
+  constexpr bool kExact = ENV == 1 || ENV == 2;
+  constexpr bool kCarryPdf = NEE || ENV == 2;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= o.n) return;
   float fx, fy;
@@ -711,12 +875,36 @@ __global__ void __launch_bounds__(PT_BLOCK)
     // solid-angle pdf of the lobe that produced the current ray (NEE's MIS
     // partner); -1 = primary ray or delta lobe
     float prev_pdf = -1.0f;
+    // exact env: the deferred escape (throughput, direction, lobe pdf),
+    // settled by one lookup after the bounce loop
+    bool escaped = false;
+    float e_wr = 0.0f, e_wg = 0.0f, e_wb = 0.0f;
+    float e_dx = 0.0f, e_dy = 1.0f, e_dz = 0.0f, e_pp = -1.0f;
 
     for (int depth = 0; depth < o.trace_depth; ++depth) {
       const HitT<REFR> h =
           (hoisted && depth == 0) ? h0 : intersect_all<REFR>(sc, ox, oy, oz, dx, dy, dz);
       if (h.t >= kMiss) {
-        if constexpr (LEGACY) {
+        if constexpr (kExact) {
+          escaped = true;
+          e_wr = cr;
+          e_wg = cg;
+          e_wb = cb;
+          e_dx = dx;
+          e_dy = dy;
+          e_dz = dz;
+          e_pp = prev_pdf;
+        } else if constexpr (ENV == 3) {
+          // SH-9 residual sky, clamped at 0; with the background composited
+          // outside the kernel, depth-0 misses add nothing
+          if (!(env.bg_external && depth == 0)) {
+            float s3[3];
+            sh9_eval(env, dx, dy, dz, s3);
+            rad_r = rad_r + cr * jmax(s3[0], 0.0f);
+            rad_g = rad_g + cg * jmax(s3[1], 0.0f);
+            rad_b = rad_b + cb * jmax(s3[2], 0.0f);
+          }
+        } else if constexpr (LEGACY) {
           // reference quirk (megakernel.py:1338-1341 has no alive mask): an
           // escaped path re-misses on its kept ray at every later depth and
           // takes the sky's tint again each time, one multiply per depth
@@ -922,9 +1110,51 @@ __global__ void __launch_bounds__(PT_BLOCK)
             rad_b = rad_b + cb * m_cb * k_d * l.le[2];
           }
         }
+      }
+
+      if constexpr (ENV == 2) {
+        // environment light at this vertex (K4): the shared alias-sampled
+        // direction of row (sample, depth), a shadow ray to 1e7 and the
+        // balance heuristic against the diffuse lobe
+        if (!glass) {
+          const float* row = env.rows + (s * o.trace_depth + depth) * 8;
+          const float ewx = __ldg(row + 0), ewy = __ldg(row + 1), ewz = __ldg(row + 2);
+          const float ecos = nx * ewx + ny * ewy + nz * ewz;
+          if ((ecos > 0.0f) && !occluded_any(sc, hx, hy, hz, ewx, ewy, ewz, 1e7f)) {
+            const float e_pdf = __ldg(row + 6);
+            const float ediff = 1.0f - m_refl;
+            const float e_pb = ediff * jmax(ecos, 0.0f) * kInvPi;
+            const float e_w = e_pdf / jmax(e_pdf + e_pb, 1e-20f);
+            const float e_k = ediff * kInvPi * jmax(ecos, 0.0f) / jmax(e_pdf, 1e-20f) * e_w;
+            rad_r = rad_r + cr * m_cr * e_k * __ldg(row + 3);
+            rad_g = rad_g + cg * m_cg * e_k * __ldg(row + 4);
+            rad_b = rad_b + cb * m_cb * e_k * __ldg(row + 5);
+          }
+        }
+      }
+
+      if constexpr (kCarryPdf) {
         // diffuse extension rays carry (1 - P) cos/pi, delta lobes -1
         const float cos_new = jmax(ndx * nx + ndy * ny + ndz * nz, 0.0f);
         prev_pdf = (!spec && !glass) ? (1.0f - m_refl) * cos_new * kInvPi : -1.0f;
+      }
+
+      if constexpr (ENV == 3) {
+        // delta suns (K5) at the diffuse lobe: one shadow ray each, no
+        // draw, no MIS
+        if (!glass) {
+          const float diffuse_p = 1.0f - m_refl;
+          for (int k = 0; k < env.num_suns; ++k) {
+            const float* sd = env.sun + 6 * k;
+            const float cos_sun = nx * sd[0] + ny * sd[1] + nz * sd[2];
+            if ((cos_sun > 0.0f) && !occluded_any(sc, hx, hy, hz, sd[0], sd[1], sd[2], 1e7f)) {
+              const float k_sun = diffuse_p * kInvPi * jmax(cos_sun, 0.0f);
+              rad_r = rad_r + cr * m_cr * k_sun * sd[3];
+              rad_g = rad_g + cg * m_cg * k_sun * sd[4];
+              rad_b = rad_b + cb * m_cb * k_sun * sd[5];
+            }
+          }
+        }
       }
 
       cr = cr * t_r;
@@ -946,38 +1176,74 @@ __global__ void __launch_bounds__(PT_BLOCK)
       acc_g = acc_g + rad_g;
       acc_b = acc_b + rad_b;
     }
+    if constexpr (kExact) {
+      // settle the deferred escape: acc + rad + throughput * L(escape)
+      if (escaped) {
+        float le[3];
+        env_lookup(env, e_dx, e_dy, e_dz, le);
+        float wmis = 1.0f;
+        if constexpr (ENV == 2) {
+          // balance heuristic against env NEE (e_pp < 0: primary, specular
+          // or glass escape); an exact reciprocal where the TPU kernel
+          // takes its approximate one
+          if (e_pp >= 0.0f) {
+            const float pe = env_pdf_lookup(env, e_dx, e_dy, e_dz);
+            wmis = e_pp * (1.0f / jmax(e_pp + pe, 1e-20f));
+          }
+          acc_r = acc_r + e_wr * le[0] * wmis;
+          acc_g = acc_g + e_wg * le[1] * wmis;
+          acc_b = acc_b + e_wb * le[2] * wmis;
+        } else {
+          acc_r = acc_r + e_wr * le[0];
+          acc_g = acc_g + e_wg * le[1];
+          acc_b = acc_b + e_wb * le[2];
+        }
+      }
+    }
   }
   out[p * 3 + 0] = acc_r;
   out[p * 3 + 1] = acc_g;
   out[p * 3 + 2] = acc_b;
 }
 
-template <bool NEE, bool REFR, bool DOF, bool LEGACY, bool TILES>
+template <bool NEE, bool REFR, bool DOF, bool LEGACY, bool TILES, int ENV>
 static int launch_variant(const Options& o, const SceneTables& t, const LightTable& lights,
-                          const TileArgs& tiles, float* out, cudaStream_t stream) {
+                          const TileArgs& tiles, const EnvExact& exact, const EnvSplit& split,
+                          float* out, cudaStream_t stream) {
   LightsArg<NEE> lt;
   TilesArg<TILES> ta;
+  EnvArg<ENV> env;
   if constexpr (NEE) lt = lights;
   if constexpr (TILES) ta = tiles;
+  if constexpr (ENV == 1 || ENV == 2) env = exact;
+  if constexpr (ENV == 3) env = split;
   const int blocks = (o.n + PT_BLOCK - 1) / PT_BLOCK;
-  pt_megakernel<NEE, REFR, DOF, LEGACY, TILES><<<blocks, PT_BLOCK, 0, stream>>>(o, t, lt, ta, out);
+  pt_megakernel<NEE, REFR, DOF, LEGACY, TILES, ENV>
+      <<<blocks, PT_BLOCK, 0, stream>>>(o, t, lt, ta, env, out);
   return (int)cudaGetLastError();
 }
 
-// Variant bits: 1 NEE, 2 REFR, 4 DOF, 8 LEGACY, 16 TILES; NEE with LEGACY
-// has no instantiation.
+// Variant bits: 1 NEE, 2 REFR, 4 DOF, 8 LEGACY, 16 TILES, ENV in bits 5-6.
+constexpr bool valid_variant(int f) {
+  const bool nee = (f & 1) != 0, legacy = (f & 8) != 0, tiles = (f & 16) != 0;
+  const int env = f >> 5;
+  return !(nee && legacy) && !(env != 0 && legacy) && !(nee && (env == 1 || env == 2)) &&
+         !(tiles && env >= 2);
+}
+
 template <int F>
 static int launch_flags(int flags, const Options& o, const SceneTables& t,
-                        const LightTable& lights, const TileArgs& tiles, float* out,
-                        cudaStream_t stream) {
-  if constexpr ((F & 9) != 9) {
+                        const LightTable& lights, const TileArgs& tiles, const EnvExact& exact,
+                        const EnvSplit& split, float* out, cudaStream_t stream) {
+  if constexpr (valid_variant(F)) {
     if (flags == F) {
       return launch_variant<(F & 1) != 0, (F & 2) != 0, (F & 4) != 0, (F & 8) != 0,
-                            (F & 16) != 0>(o, t, lights, tiles, out, stream);
+                            (F & 16) != 0, (F >> 5)>(o, t, lights, tiles, exact, split, out,
+                                                     stream);
     }
   }
-  if constexpr (F + 1 < 32) {
-    return launch_flags<F + 1>(flags, o, t, lights, tiles, out, stream);
+  if constexpr (F + 1 < 128) {
+    return launch_flags<F + 1>(flags, o, t, lights, tiles, exact, split, out, stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -988,8 +1254,11 @@ static int launch_flags(int flags, const Options& o, const SceneTables& t,
 // code (0 = launched). Host pointers, read before this returns: cam[16],
 // geo[num_geoms*21], mats[num_materials*10], gmat[num_geoms],
 // perm[num_geoms*3], lights[num_lights*26], light_ids[num_lights*2]
-// (kind, material). Device pointers, with num_tiles > 0 (then n =
-// num_tiles * tile): tiles[2*num_tiles], px[n], py[n].
+// (kind, material), suns[num_suns*6], sh[27]. Device pointers, with
+// num_tiles > 0 (then n = num_tiles * tile): tiles[2*num_tiles], px[n],
+// py[n]; with env_mode 1-2 (exact, exact + env NEE): env_rad[env_h*env_w*3],
+// env_pdf[env_h*env_w], with 2 also env_rows[num_samples*trace_depth*8].
+// env_mode 3 is the split mode (suns, SH, bg_external).
 extern "C" int pt_megakernel_launch(
     float* out, int n, int width, int height, int seed, int iter_base,
     int tile, int num_samples, int trace_depth,
@@ -999,15 +1268,24 @@ extern "C" int pt_megakernel_launch(
     const int* perm, int num_cubes, int num_geoms, int num_materials,
     const float* lights, const int* light_ids, int num_lights,
     const int* tiles, const float* px, const float* py, int num_tiles,
+    int env_mode, const float* env_rad, const float* env_pdf, const float* env_rows,
+    int env_h, int env_w, const float* suns, int num_suns, const float* sh, int bg_external,
     void* stream) {
   if (n < 0 || width <= 0 || height <= 0 || tile <= 0 || num_geoms < 0 ||
       num_geoms > PT_MAX_GEOMS || num_materials <= 0 ||
       num_materials > PT_MAX_MATERIALS || num_cubes < 0 || num_cubes > num_geoms ||
       (nee && legacy) || (nee && (num_lights <= 0 || num_lights > PT_MAX_LIGHTS || !lights ||
                                   !light_ids)) ||
-      num_tiles < 0 || (num_tiles > 0 && (!tiles || !px || !py || n != num_tiles * tile))) {
+      num_tiles < 0 || (num_tiles > 0 && (!tiles || !px || !py || n != num_tiles * tile)) ||
+      env_mode < 0 || env_mode > 3 ||
+      ((env_mode == 1 || env_mode == 2) && (!env_rad || !env_pdf || env_h <= 0 || env_w <= 0)) ||
+      (env_mode == 2 && !env_rows) ||
+      (env_mode == 3 && (num_suns < 0 || num_suns > PT_MAX_SUNS || (num_suns > 0 && !suns) ||
+                         !sh))) {
     return (int)cudaErrorInvalidValue;
   }
+  const int flags = (nee ? 1 : 0) | (refraction ? 2 : 0) | (dof ? 4 : 0) | (legacy ? 8 : 0) |
+                    (num_tiles > 0 ? 16 : 0) | (env_mode << 5);
   if (n == 0 || num_samples <= 0) return 0;
   SceneTables t;
   memset(&t, 0, sizeof(t));
@@ -1036,6 +1314,15 @@ extern "C" int pt_megakernel_launch(
     lt.count = num_lights;
   }
   TileArgs ta = {tiles, px, py, num_tiles};
+  EnvExact exact = {env_rad, env_pdf, env_rows, env_h, env_w};
+  EnvSplit split;
+  memset(&split, 0, sizeof(split));
+  if (env_mode == 3) {
+    if (num_suns > 0) memcpy(split.sun, suns, sizeof(float) * (size_t)num_suns * 6);
+    memcpy(split.sh, sh, sizeof(split.sh));
+    split.num_suns = num_suns;
+    split.bg_external = bg_external;
+  }
   Options o;
   o.n = n;
   o.width = width;
@@ -1050,7 +1337,5 @@ extern "C" int pt_megakernel_launch(
   o.use_ld = use_ld;
   o.n_ld = n_ld;
   o.sky_strength = sky_strength;
-  const int flags = (nee ? 1 : 0) | (refraction ? 2 : 0) | (dof ? 4 : 0) | (legacy ? 8 : 0) |
-                    (num_tiles > 0 ? 16 : 0);
-  return launch_flags<0>(flags, o, t, lt, ta, out, (cudaStream_t)stream);
+  return launch_flags<0>(flags, o, t, lt, ta, exact, split, out, (cudaStream_t)stream);
 }

@@ -8,8 +8,11 @@ of analytic scenes: light_only or throughput (legacy) gathering, Russian
 roulette past ``rr_start_depth``, the Owen-scrambled Sobol sampler on the
 leading ``ld_depths`` bounces (or the counter-hash streams alone), sub-pixel
 jitter, a thin-lens camera, dielectric refraction, and next-event estimation
-(NEE) of the analytic emitters with multiple importance sampling (MIS).
-Environment maps (kernels K3-K5) are not ported yet.
+(NEE) of the analytic emitters with multiple importance sampling (MIS),
+and the environment map: the exact bilinear HDR lookup at escape (K3),
+environment NEE from shared alias-table rows with MIS (K4), and the sun/sky
+split with delta suns, an SH-9 residual sky and the exact background
+composited outside the kernel (K5).
 
 - :func:`render_samples` and :func:`render_tiles` are the entry points. On
   a scene whose tensors lie on a CUDA device they launch
@@ -37,17 +40,23 @@ import numpy as np
 import torch
 
 from .build import NVCC_FLAGS, load
+from .. import camera as camera_ops
+from .. import envmap as envmap_ops
+from ..intersect import intersect_scene
 from ..rng import (
     MASK32,
     bit_reverse32,
+    fold_in,
     kernel_seed,
     laine_karras,
     ld_bounce_tags,
     ld_nee_tags,
     ld_shift,
     mul32,
+    prng_key,
     to_u01,
     u32,
+    uniform,
 )
 
 # Pixels per RNG tile (the TPU kernel's TILE = 16 rows × 128 lanes): the hash
@@ -74,6 +83,14 @@ _LF = 26  # floats per light row: A(9) translation(3) A^-T(9) |det A| Le(3) pdf
 MAX_GEOMS = 16
 MAX_MATERIALS = 16
 MAX_LIGHTS = MAX_GEOMS
+# delta suns of env_mode='split' that travel by value (RenderConfig's
+# default env_split_suns is 8)
+MAX_SUNS = 32
+# Largest map rendered exactly in-kernel: the JAX kernel's VMEM/matmul cap
+# (`megakernel.py:427`), kept so the port takes the megakernel exactly where
+# the JAX package does (the H100 reads the map from device memory and needs
+# no cap; lifting it is a candidate deviation, ROADMAP Queue 3).
+MAX_ENV_EXACT_TEXELS = 256 * 512
 
 # Samples × pixels per batch of the plain version (bounds its memory).
 _REFERENCE_BATCH = 1 << 21
@@ -127,6 +144,38 @@ class LightTable:
 
 
 @dataclasses.dataclass(frozen=True)
+class EnvTables:
+    """The environment map as the kernel reads it (the JAX kernel's env
+    VMEM planes and static split tables).
+
+    - ``exact``: ``rad`` the strength-folded radiance [H·W·3] f32 (row-major
+      H, W, RGB) and ``pdf`` the sampler's per-texel pdf [H·W] f32, both on
+      the scene's device; ``envmap`` draws env NEE's shared rows.
+    - ``split``: ``suns`` [S, 6] f32 rows (dx, dy, dz, Er, Eg, Eb) and
+      ``sh`` [3, 9] f32 (column 0 holds the rounded product coef·Y00, as the
+      JAX kernel's first SH term), from ``sh_coeffs``, the float64
+      ``split_envmap`` output; with ``bg_external``, ``bg`` [N, 3] is the
+      exact bilinear background of each primary ray and ``bg_miss`` [N]
+      f32 1 where that ray misses every primitive."""
+
+    mode: str  # 'exact' | 'split'
+    height: int
+    width: int
+    envmap: object = None  # ops.envmap.EnvMap
+    rad: Optional[torch.Tensor] = None
+    pdf: Optional[torch.Tensor] = None
+    suns: Optional[np.ndarray] = None
+    sh: Optional[np.ndarray] = None
+    sh_coeffs: tuple = ()
+    bg: Optional[torch.Tensor] = None
+    bg_miss: Optional[torch.Tensor] = None
+
+    @property
+    def num_suns(self) -> int:
+        return 0 if self.suns is None else int(self.suns.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
 class PackedScene:
     """Host copies of the tables the kernel reads (the TPU kernel's SMEM
     operands): camera [16], geometry [K·21], geom material ids [K],
@@ -143,6 +192,7 @@ class PackedScene:
     width: int
     height: int
     lights: Optional[LightTable] = None
+    env: Optional[EnvTables] = None
 
     @property
     def num_geoms(self) -> int:
@@ -151,6 +201,12 @@ class PackedScene:
     @property
     def num_materials(self) -> int:
         return self.mats.shape[0] // _MF
+
+    @property
+    def has_emitters(self) -> bool:
+        """Whether any geom's material emits (from the host tables, so
+        routing a packed scene reads nothing back from the device)."""
+        return bool(np.any(self.mats.reshape(-1, _MF)[self.gmat, 8] > 0.0))
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -221,11 +277,13 @@ def static_light_table(scene) -> Optional[LightTable]:
     )
 
 
-def pack_scene(scene, nee: bool = False) -> PackedScene:
+def pack_scene(scene, nee: bool = False, config=None) -> PackedScene:
     """Read the scene's tables to the host once (the layout of the JAX
     ``_pack_scene`` plus the camera vector of ``_render_samples_impl``).
     With ``nee``, also the light table; a scene without analytic emitters
-    then raises ``ValueError``, as the JAX ``render_samples`` does."""
+    then raises ``ValueError``, as the JAX ``render_samples`` does. With a
+    ``config`` and a scene with an environment map, also the map's tables
+    for ``config.env_mode`` (:func:`pack_env`)."""
 
     def pack_batch(b):
         if b.count == 0:
@@ -287,7 +345,66 @@ def pack_scene(scene, nee: bool = False) -> PackedScene:
         width=int(w),
         height=int(h),
         lights=lights,
+        env=pack_env(scene, config) if config is not None and scene.envmap is not None else None,
     )
+
+
+def pack_env(scene, config) -> EnvTables:
+    """The environment tables of ``scene`` for ``config`` (the JAX
+    ``_static_env_exact`` / ``_static_env_split`` and the planes of
+    ``_render_samples_impl``). Split tables come from float64 NumPy, as in
+    JAX; the split background is one bilinear lookup per primary ray and the
+    primary rays' miss mask, both iteration-invariant, so they are computed
+    once here. Raises ``ValueError`` past ``MAX_SUNS`` suns."""
+    opts = kernel_options(config, scene)
+    env = scene.envmap
+    h, w = env.shape
+    if opts.env == "exact":
+        return EnvTables(
+            mode="exact", height=h, width=w, envmap=env,
+            rad=(env.img * env.strength).reshape(-1).contiguous(),
+            pdf=env.pdf.reshape(-1).contiguous(),
+        )
+    img = _host(env.img).astype(np.float64) * float(_host(env.strength))
+    suns, sh = envmap_ops.split_envmap(
+        img, max_suns=int(config.env_split_suns), thresh=float(config.env_split_thresh)
+    )
+    if len(suns) > MAX_SUNS:
+        raise ValueError(
+            f"env_mode='split': {len(suns)} suns exceed the kernel's MAX_SUNS="
+            f"{MAX_SUNS}; lower env_split_suns or use env_mode='exact'"
+        )
+    sh_f = np.array([[np.float32(ch[0] * envmap_ops._SH_C[0])] + list(ch[1:]) for ch in sh],
+                    np.float32)
+    bg = bg_miss = None
+    if opts.bg_external:
+        o3, d3 = camera_ops.generate_rays(scene.camera)
+        bg_miss = intersect_scene(scene, o3, d3).miss.to(torch.float32)
+        bg = envmap_ops.env_radiance(env, d3)
+    return EnvTables(
+        mode="split", height=h, width=w, envmap=env,
+        suns=np.asarray(suns, np.float32).reshape(-1, 6), sh=sh_f, sh_coeffs=sh,
+        bg=bg, bg_miss=bg_miss,
+    )
+
+
+def build_env_nee_rows(env, seed: int, iter_base: int, num_samples: int,
+                       trace_depth: int) -> torch.Tensor:
+    """[S·D, 8] shared env-NEE rows (the JAX ``_build_env_nee_rows``): one
+    alias draw per (iteration, depth), ``(dir xyz, bilinear radiance rgb,
+    solid-angle pdf, 0)``, on the map's device. The uniforms are
+    ``jax.random``'s: ``PRNGKey(uint32(seed) ^ 0xE17B0075)`` folded with the
+    absolute iteration, then ``uniform(k, (trace_depth, 2))``. Radiance is
+    bilinear, so both MIS techniques integrate the same L as the escape
+    lookup."""
+    dev = env.device
+    key = prng_key(u32(seed) ^ 0xE17B0075)
+    iters = u32(int(iter_base) + torch.arange(num_samples, dtype=torch.int64))
+    keys = fold_in(key, iters)
+    u = uniform(tuple(k.to(dev) for k in keys), (trace_depth, 2)).reshape(-1, 2)
+    d, _le_nearest, pdf = envmap_ops.sample_env(env, u[:, 0], u[:, 1])
+    le = envmap_ops.env_radiance(env, d)
+    return torch.cat([d, le, pdf[:, None], torch.zeros_like(pdf)[:, None]], dim=-1)
 
 
 # ─────────────────────────────── options ───────────────────────────────
@@ -305,17 +422,60 @@ class KernelOptions:
     legacy: bool = False  # gather_mode='throughput'
     refraction: bool = False
     dof: bool = False
-    nee: bool = False
+    nee: bool = False  # NEE of the analytic emitters (K2)
+    env: str = "none"  # 'none' | 'exact' (K3) | 'split' (K5)
+    env_nee: bool = False  # exact env importance-sampled in-kernel (K4)
+    bg_external: bool = False  # split: depth-0 background composited outside
 
 
-def kernel_options(config) -> KernelOptions:
-    """The kernel's options from a ``RenderConfig`` and the module's
-    ``TILE``. Raises ``ValueError`` where the JAX kernel does (NEE with the
-    throughput estimator); ``config.dof`` None counts as off (the Renderer
-    resolves it from the camera's aperture). ``config.early_exit`` is
-    accepted and changes nothing: the CUDA kernel's threads already leave
-    their bounce loop when their path ends, and the JAX flag only skips
-    bounces in which every lane of a tile is dead."""
+def supports(scene) -> bool:
+    """Whether the megakernel renders ``scene`` (the JAX ``supports``):
+    environment maps up to ``MAX_ENV_EXACT_TEXELS`` texels. Larger maps
+    belong to the fast pipeline (ROADMAP Queue 1 item 10)."""
+    if scene.envmap is not None:
+        h, w = scene.envmap.shape
+        if h * w > MAX_ENV_EXACT_TEXELS:
+            return False
+    return True
+
+
+def _has_emitters(scene, packed=None) -> bool:
+    if packed is not None:
+        return packed.has_emitters
+    return static_light_table(scene) is not None
+
+
+def wants_env_nee(scene, config, packed=None) -> bool:
+    """True iff ``(scene, config)`` runs the in-kernel env NEE estimator
+    (the JAX ``_wants_env_nee``): ``env_mode='exact'`` + ``nee`` on a scene
+    with an environment map and no analytic emitter. Raises ``ValueError``
+    for an environment plus analytic emitters under ``nee`` (their combined
+    NEE runs on the fast pipeline, ROADMAP Queue 1 item 10). With the
+    scene's ``packed`` tables, reads nothing from the device."""
+    if not config.nee or scene.envmap is None or config.env_mode == "split":
+        return False
+    if config.gather_mode != "light_only":
+        raise ValueError("nee requires gather_mode='light_only'")
+    if _has_emitters(scene, packed):
+        raise ValueError(
+            "exact env + analytic emissive lights: the combined "
+            "two-technique NEE runs on pipeline='fast'"
+        )
+    return True
+
+
+def kernel_options(config, scene=None, packed=None) -> KernelOptions:
+    """The kernel's options from a ``RenderConfig`` (and, for a scene with
+    an environment map, the scene, whose emitters are read from ``packed``
+    when given) and the module's ``TILE``. Raises
+    ``ValueError`` where the JAX kernel does: NEE with the throughput
+    estimator, an environment with it, an exact map past
+    ``MAX_ENV_EXACT_TEXELS``, exact env + analytic emitters under ``nee``.
+    ``config.dof`` None counts as off (the Renderer resolves it from the
+    camera's aperture). ``config.early_exit`` is accepted and changes
+    nothing: the CUDA kernel's threads already leave their bounce loop when
+    their path ends, and the JAX flag only skips bounces in which every
+    lane of a tile is dead."""
     if config.gather_mode not in ("light_only", "throughput"):
         raise ValueError(f"unknown gather_mode {config.gather_mode!r}")
     legacy = config.gather_mode == "throughput"
@@ -327,6 +487,31 @@ def kernel_options(config) -> KernelOptions:
         raise ValueError(f"TILE must be positive, got {TILE}")
     use_ld = config.sampler == "sobol"
     ld = max(1, int(config.ld_depths)) if use_ld else 0
+    nee = bool(config.nee)
+    env, env_nee, bg_external = "none", False, False
+    if scene is not None and scene.envmap is not None:
+        if config.env_mode == "split":
+            if legacy:
+                raise ValueError("env_mode='split' requires gather_mode='light_only'")
+            env = "split"
+            bg_external = not (config.antialias or config.dof)
+            # an env-only scene renders split + nee without analytic NEE
+            nee = nee and _has_emitters(scene, packed)
+        else:
+            h, w = scene.envmap.shape
+            if h * w > MAX_ENV_EXACT_TEXELS:
+                raise ValueError(
+                    f"env_mode='exact' in-kernel supports maps up to "
+                    f"{MAX_ENV_EXACT_TEXELS} texels (got {h}x{w}); use "
+                    "env_mode='split' or pipeline='fast'"
+                )
+            env_nee = wants_env_nee(scene, config, packed)
+            if legacy:
+                raise ValueError(
+                    "env_mode='exact' (in-kernel) requires gather_mode='light_only' "
+                    "and excludes env_mode='split'"
+                )
+            env, nee = "exact", False
     return KernelOptions(
         trace_depth=int(config.trace_depth),
         rr_start_depth=int(config.rr_start_depth),
@@ -338,7 +523,10 @@ def kernel_options(config) -> KernelOptions:
         legacy=legacy,
         refraction=bool(config.enable_refraction),
         dof=bool(config.dof),
-        nee=bool(config.nee),
+        nee=nee,
+        env=env,
+        env_nee=env_nee,
+        bg_external=bg_external,
     )
 
 
@@ -711,6 +899,92 @@ def _sample_light(row, u_l1, u_l2):
             full * le[0], full * le[1], full * le[2])
 
 
+# the JAX kernel's polynomial atan2 (`megakernel.py:76-109`): a degree-9
+# fit of atan(t)/t in t² with the octant reduction, not the library atan2
+_ATAN_C = (
+    0.9999999930825906, -0.33333254080432473, 0.199977505037471,
+    -0.14257992653960597, 0.1092607635073435, -0.08340029963538047,
+    0.05703403618375145, -0.030384225558022983, 0.010544175519843985,
+    -0.0017213223616973183,
+)
+
+
+def _patan2(y, x):
+    """The JAX kernel's ``_patan2``: atan2 from the polynomial, (0, 0) → 0."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    swap = ay > ax
+    num = torch.where(swap, ax, ay)
+    den = torch.clamp_min(torch.where(swap, ay, ax), 1e-30)
+    t = num / den
+    sq = t * t
+    p = torch.full_like(t, _ATAN_C[-1])
+    for c in _ATAN_C[-2::-1]:
+        p = p * sq + c
+    r = p * t
+    r = torch.where(swap, (_PI * 0.5) - r, r)
+    r = torch.where(x < 0, _PI - r, r)
+    return torch.where(y < 0, -r, r)
+
+
+def _pacos(x):
+    """The JAX kernel's ``_pacos``: acos through :func:`_patan2`."""
+    return _patan2(torch.sqrt(torch.clamp_min((1.0 - x) * (1.0 + x), 0.0)), x)
+
+
+def _env_uv(dx, dy, dz):
+    u = 0.5 + _patan2(dx, -dz) * (1.0 / (2.0 * _PI))
+    v = _pacos(torch.clamp(dy, -1.0, 1.0)) * (1.0 / _PI)
+    return u, v
+
+
+def _env_lookup(env: EnvTables, dx, dy, dz):
+    """Bilinear radiance at escape, as the JAX kernel's ``env_lookup`` (K3):
+    wrap in azimuth, clamp at the poles, per-texel weights summed as its
+    one-hot rows sum them (at the pole clamp ``y0 == y1`` the row weight is
+    ``(1-ty)+ty``), then two-term sums: ``P[y0]·wy0 + P[y1]·wy1`` per column,
+    ``wx0·col0 + wx1·col1``."""
+    h, w = env.height, env.width
+    u, v = _env_uv(dx, dy, dz)
+    fx = u * w - 0.5
+    fy = v * h - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    tx = fx - x0
+    ty = fy - y0
+    x0i = x0.to(torch.int64)
+    x0i = torch.where(x0i < 0, w - 1, torch.clamp_max(x0i, w - 1))
+    x1i = torch.where(x0i + 1 > w - 1, 0, x0i + 1)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    y1i = torch.clamp_max(y0i + 1, h - 1)
+    same_y = y0i == y1i
+    same_x = x0i == x1i
+    wy0 = torch.where(same_y, (1.0 - ty) + ty, 1.0 - ty)
+    wx0 = torch.where(same_x, (1.0 - tx) + tx, 1.0 - tx)
+    rad = env.rad.reshape(h, w, 3)
+    out = []
+    for c in range(3):
+        plane = rad[..., c]
+
+        def column(xi):
+            top = plane[y0i, xi] * wy0
+            return torch.where(same_y, top, top + plane[y1i, xi] * ty)
+
+        left = wx0 * column(x0i)
+        out.append(torch.where(same_x, left, left + tx * column(x1i)))
+    return out
+
+
+def _env_pdf_lookup(env: EnvTables, dx, dy, dz):
+    """The sampler's pdf of the escape direction, nearest texel without the
+    −0.5 offset (the JAX kernel's ``env_pdf_lookup``, K4's MIS partner)."""
+    h, w = env.height, env.width
+    u, v = _env_uv(dx, dy, dz)
+    xi = torch.clamp((u * w).to(torch.int64), 0, w - 1)
+    yi = torch.clamp((v * h).to(torch.int64), 0, h - 1)
+    return env.pdf[yi * w + xi]
+
+
 @dataclasses.dataclass(frozen=True)
 class _Pixels:
     """Per-pixel keys of the flat batch: global id (LD lattice), float
@@ -785,11 +1059,18 @@ def _count(stats, key, mask):
         stats[key] = stats.get(key, 0) + mask.sum()
 
 
-def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None):
-    """Radiance [3, S, N] of one batch of samples (its: [S, 1] or [S, N]).
-    With ``stats``, adds the work the CUDA kernel's threads do for these
-    samples: nearest-hit traces ('isect'), scatters ('scatter') and
-    shadow rays ('shadow'), as 0-d tensors."""
+def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_rows=None):
+    """Radiance of one batch of samples (its: [S, 1] or [S, N]): the three
+    [S, N] path sums, and with an exact environment the three [S, N]
+    escape terms, which the kernel adds to its sum after the path's
+    radiance (``acc + rad + env``, as the JAX ``accumulate``). ``env_rows``
+    are env NEE's shared rows for these iterations (:func:`build_env_nee_rows`
+    from ``px.iter_base``). With ``stats``, adds the work the CUDA kernel's
+    threads do for these samples: nearest-hit traces ('isect'), scatters
+    ('scatter'), analytic-light shadow rays ('shadow'), env NEE shadow
+    rays ('env_shadow'), sun shadow rays ('sun_shadow'), SH-9 sky
+    evaluations ('sh'), escape lookups ('env_lookup') and the escape's pdf
+    lookups under env NEE ('env_pdf'), as 0-d tensors."""
     mat_cols = torch.as_tensor(
         packed.mats.reshape(-1, _MF).T.copy(), device=px.pid.device
     )  # [10, M]
@@ -799,6 +1080,16 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None):
     lights = packed.lights if opts.nee else None
     light_rows = list(_light_rows(lights)) if lights is not None else []
     n_lights = len(light_rows)
+    env = packed.env
+    if opts.env != "none" and (env is None or env.mode != opts.env):
+        raise ValueError(f"env_mode {opts.env!r}: the packed scene carries no such tables")
+    exact = opts.env == "exact"
+    carry_pdf = lights is not None or opts.env_nee
+    suns = []
+    if opts.env == "split":
+        # f32 scalars, so the shadow ray's object-space direction is f32 math
+        suns = [tuple(torch.tensor(float(v), dtype=torch.float32, device=px.pid.device)
+                      for v in row) for row in env.suns]
 
     ox, oy, oz, dx, dy, dz = _init_sample(packed, opts, seed_u, its, px, prng, primary, shape)
     f32 = dict(dtype=torch.float32, device=px.pid.device)
@@ -810,6 +1101,16 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None):
     rad_b = torch.zeros(shape, **f32)
     prev_pdf = torch.full(shape, -1.0, **f32)
     alive = torch.ones(shape, dtype=torch.bool, device=px.pid.device)
+    if exact:
+        # deferred escape: throughput, direction and lobe pdf at the escape
+        # (never-escaped samples keep weight 0 and a valid direction)
+        e_wr = torch.zeros(shape, **f32)
+        e_wg = torch.zeros(shape, **f32)
+        e_wb = torch.zeros(shape, **f32)
+        e_dx = torch.zeros(shape, **f32)
+        e_dy = torch.ones(shape, **f32)
+        e_dz = torch.zeros(shape, **f32)
+        e_pp = torch.full(shape, -1.0, **f32)
 
     for depth in range(opts.trace_depth):
         rr = depth > opts.rr_start_depth
@@ -856,7 +1157,29 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None):
             ((1.0 - t_sky) + t_sky * 0.7) * 0.5,
             ((1.0 - t_sky) + t_sky * 1.0) * 0.5,
         )
-        if opts.legacy:
+        if exact:
+            esc = missed & alive
+            _count(stats, "env_lookup", esc)
+            e_wr = torch.where(esc, cr, e_wr)
+            e_wg = torch.where(esc, cg, e_wg)
+            e_wb = torch.where(esc, cb, e_wb)
+            e_dx = torch.where(esc, dx, e_dx)
+            e_dy = torch.where(esc, dy, e_dy)
+            e_dz = torch.where(esc, dz, e_dz)
+            if opts.env_nee:
+                _count(stats, "env_pdf", esc & (prev_pdf >= 0.0))
+                e_pp = torch.where(esc, prev_pdf, e_pp)
+        elif opts.env == "split":
+            # SH-9 residual sky, clamped at 0; with the background composited
+            # outside, depth-0 misses add nothing here
+            if not (opts.bg_external and depth == 0):
+                esc = missed & alive
+                _count(stats, "sh", esc)
+                s3 = envmap_ops.sh9_eval(env.sh_coeffs, dx, dy, dz)
+                rad_r = torch.where(esc, rad_r + cr * torch.clamp_min(s3[0], 0.0), rad_r)
+                rad_g = torch.where(esc, rad_g + cg * torch.clamp_min(s3[1], 0.0), rad_g)
+                rad_b = torch.where(esc, rad_b + cb * torch.clamp_min(s3[2], 0.0), rad_b)
+        elif opts.legacy:
             # reference quirk (`pathtrace.cu:358-362` parity): no alive
             # mask, so an escaped path, which re-misses on its kept ray,
             # takes the sky's tint again at every later depth
@@ -1013,8 +1336,33 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None):
             rad_r = torch.where(add, rad_r + cr * m_cr * k_d * le_r, rad_r)
             rad_g = torch.where(add, rad_g + cg * m_cg * k_d * le_g, rad_g)
             rad_b = torch.where(add, rad_b + cb * m_cb * k_d * le_b, rad_b)
-            # pdf of the lobe that generated the extension ray, for the
-            # next emissive hit's MIS weight; delta lobes carry −1
+
+        base = act & ~glass if glass is not None else act
+        if opts.env_nee:
+            # environment light at this vertex: the (iteration, depth) row's
+            # shared alias-sampled direction, a shadow ray to 1e7 and the
+            # balance heuristic against the diffuse lobe
+            erow = env_rows[(its - px.iter_base) * opts.trace_depth + depth]
+            ewx, ewy, ewz = erow[..., 0], erow[..., 1], erow[..., 2]
+            e_pdf = erow[..., 6]
+            ecos = nx * ewx + ny * ewy + nz * ewz
+            _count(stats, "env_shadow", base & (ecos > 0.0))
+            evis = ~_occluded_any(packed, hx, hy, hz, ewx, ewy, ewz, 1e7)
+            ediff = 1.0 - m_refl
+            e_pb = ediff * torch.clamp_min(ecos, 0.0) * _INV_PI_F32
+            e_w = e_pdf / torch.clamp_min(e_pdf + e_pb, 1e-20)
+            e_k = (
+                ediff * _INV_PI_F32 * torch.clamp_min(ecos, 0.0)
+                / torch.clamp_min(e_pdf, 1e-20) * e_w
+            )
+            eadd = base & (ecos > 0.0) & evis
+            rad_r = torch.where(eadd, rad_r + cr * m_cr * e_k * erow[..., 3], rad_r)
+            rad_g = torch.where(eadd, rad_g + cg * m_cg * e_k * erow[..., 4], rad_g)
+            rad_b = torch.where(eadd, rad_b + cb * m_cb * e_k * erow[..., 5], rad_b)
+
+        if carry_pdf:
+            # pdf of the lobe that generated the extension ray, for the next
+            # emissive hit's (or escape's) MIS weight; delta lobes carry −1
             cos_new = torch.clamp_min(ndx * nx + ndy * ny + ndz * nz, 0.0)
             diffuse_ext = act & ~spec
             if glass is not None:
@@ -1022,6 +1370,17 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None):
             prev_pdf = torch.where(
                 diffuse_ext, (1.0 - m_refl) * cos_new * _INV_PI_F32, -1.0
             )
+
+        for sd0, sd1, sd2, ser, seg, seb in suns:
+            # a delta sun at the diffuse lobe: one shadow ray, no draw, no MIS
+            cos_sun = nx * sd0 + ny * sd1 + nz * sd2
+            _count(stats, "sun_shadow", base & (cos_sun > 0.0))
+            sun_vis = ~_occluded_any(packed, hx, hy, hz, sd0, sd1, sd2, 1e7)
+            sun_add = base & (cos_sun > 0.0) & sun_vis
+            k_sun = (1.0 - m_refl) * _INV_PI_F32 * torch.clamp_min(cos_sun, 0.0)
+            rad_r = torch.where(sun_add, rad_r + cr * m_cr * k_sun * ser, rad_r)
+            rad_g = torch.where(sun_add, rad_g + cg * m_cg * k_sun * seg, rad_g)
+            rad_b = torch.where(sun_add, rad_b + cb * m_cb * k_sun * seb, rad_b)
 
         cr = torch.where(act, cr * t_r, cr)
         cg = torch.where(act, cg * t_g, cg)
@@ -1034,11 +1393,25 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None):
         dz = torch.where(act, ndz, dz)
         alive = act
     if opts.legacy:  # every path's terminal throughput, as `pathtrace.cu:439-444`
-        return cr, cg, cb
-    return rad_r, rad_g, rad_b
+        return (cr, cg, cb)
+    if not exact:
+        return (rad_r, rad_g, rad_b)
+    # settle the deferred escape: one lookup per sample (never-escaped
+    # samples add weight 0 times a valid lookup)
+    er, eg, eb = _env_lookup(env, e_dx, e_dy, e_dz)
+    terms = [e_wr * er, e_wg * eg, e_wb * eb]
+    if opts.env_nee:
+        # balance heuristic against env NEE (prev_pdf < 0: primary, specular
+        # or glass escape, weight 1); the JAX kernel takes its approximate
+        # reciprocal here, the port an exact one
+        pe = _env_pdf_lookup(env, e_dx, e_dy, e_dz)
+        wmis = torch.where(e_pp < 0.0, 1.0, e_pp * (1.0 / torch.clamp_min(e_pp + pe, 1e-20)))
+        terms = [t * wmis for t in terms]
+    return (rad_r, rad_g, rad_b, *terms)
 
 
-def _render_reference(packed, opts, seed, px: _Pixels, num_samples, stats=None):
+def _render_reference(packed, opts, seed, px: _Pixels, num_samples, stats=None,
+                      env_rows=None):
     """Radiance sums [N, 3] of the plain version over ``px``, accumulated
     in ascending iteration order (``stats``: see :func:`_trace_batch`)."""
     dev = px.pid.device
@@ -1053,15 +1426,19 @@ def _render_reference(packed, opts, seed, px: _Pixels, num_samples, stats=None):
         primary = (base_dir, hit0)
         _count(stats, "isect", torch.ones_like(px.fx, dtype=torch.bool))
     base = px.iter_base
+    if opts.env_nee and env_rows is None:
+        env_rows = build_env_nee_rows(
+            packed.env.envmap, seed, base, num_samples, opts.trace_depth
+        ).to(dev)
     acc = [torch.zeros(n, dtype=torch.float32, device=dev) for _ in range(3)]
     group = max(1, min(num_samples, _REFERENCE_BATCH // max(n, 1)))
     for start in range(0, num_samples, group):
         stop = min(num_samples, start + group)
         its = base + torch.arange(start, stop, dtype=torch.int64, device=dev)[:, None]
-        rad = _trace_batch(packed, opts, seed, its, px, primary, stats)
+        rad = _trace_batch(packed, opts, seed, its, px, primary, stats, env_rows)
         for s in range(stop - start):
-            for c in range(3):
-                acc[c] = acc[c] + rad[c][s]
+            for c in range(len(rad)):  # the path's radiance, then the escape term
+                acc[c % 3] = acc[c % 3] + rad[c][s]
     return torch.stack(acc, dim=-1)
 
 
@@ -1073,6 +1450,7 @@ def render_samples_reference(
     iter_base: int,
     num_samples: int,
     stats: Optional[dict] = None,
+    env_rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel over the flat pixel array.
 
@@ -1081,7 +1459,8 @@ def render_samples_reference(
     lane ``i % tile`` of tile ``i // tile``. Returns the [N, 3]
     f32 radiance sum over iterations ``iter_base .. iter_base+num_samples-1``,
     accumulated in ascending iteration order. ``stats``, if given, receives
-    the work counts of :func:`_trace_batch`."""
+    the work counts of :func:`_trace_batch`. Env NEE's rows for these
+    iterations are built here unless ``env_rows`` holds them."""
     p = u32(pixel_ids)
     pos = torch.arange(p.shape[0], dtype=torch.int64, device=p.device)
     px = _Pixels(
@@ -1092,7 +1471,7 @@ def render_samples_reference(
         tile_id=pos // opts.tile,
         iter_base=int(iter_base),
     )
-    return _render_reference(packed, opts, seed, px, num_samples, stats)
+    return _render_reference(packed, opts, seed, px, num_samples, stats, env_rows)
 
 
 def render_tiles_reference(
@@ -1165,6 +1544,8 @@ class Megakernel:
                 p, p, p, p, p, i, i, i,  # scene tables
                 p, p, i,  # light table
                 p, p, p, i,  # tile dispatch
+                i, p, p, p, i, i,  # environment: mode, radiance, pdf, NEE rows, h, w
+                p, i, p, i,  # split: suns, count, SH, background outside
                 p,  # stream
             ]
             self._lib = lib
@@ -1179,14 +1560,20 @@ class Megakernel:
         num_samples: int,
         device: torch.device,
         tiles: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+        env_rows: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Launch over the full frame, or with ``tiles = (table, px, py)``
         over K chosen tiles: ``table`` int32 [2K] (K tile ids, then K
         1-based iteration bases) and ``px``/``py`` f32 [K·tile], all on
-        ``device``."""
+        ``device``. Env NEE reads the shared rows of this launch's
+        iterations, ``env_rows`` [num_samples·trace_depth, 8] on ``device``,
+        which are built here before the launch when not given
+        (:func:`build_env_nee_rows`)."""
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"the CUDA megakernel needs a CUDA device, got {device}")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         if packed.num_geoms > MAX_GEOMS or packed.num_materials > MAX_MATERIALS:
             raise ValueError(
                 f"scene has {packed.num_geoms} geoms / {packed.num_materials} "
@@ -1217,6 +1604,33 @@ class Megakernel:
                     f"tile table [{2 * num_tiles}] needs px/py [{n}], got "
                     f"{tuple(px.shape)}/{tuple(py.shape)}"
                 )
+        env = packed.env
+        env_mode = _ENV_MODES[(opts.env, opts.env_nee)]
+        if env_mode and (env is None or env.mode != opts.env):
+            raise ValueError(f"env_mode {opts.env!r}: the packed scene carries no such tables")
+        if env_mode >= 2 and tiles is not None:
+            raise ValueError("the tile dispatch carries only env_mode='exact' without nee")
+        rad = pdf = rows = suns = sh = None
+        if env_mode in (1, 2):
+            rad, pdf = env.rad, env.pdf
+            for t in (rad, pdf):
+                if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+                    raise ValueError(f"env tables must be contiguous f32 on {device}")
+            if env_mode == 2:
+                rows = env_rows
+                if rows is None:
+                    rows = build_env_nee_rows(
+                        env.envmap, seed, iter_base, num_samples, opts.trace_depth
+                    )
+                if (rows.shape != (num_samples * opts.trace_depth, 8) or rows.device != device
+                        or rows.dtype != torch.float32 or not rows.is_contiguous()):
+                    raise ValueError(
+                        f"env NEE rows must be contiguous f32 [{num_samples * opts.trace_depth}, 8] "
+                        f"on {device}, got {tuple(rows.shape)} {rows.dtype} on {rows.device}"
+                    )
+        elif env_mode == 3:
+            suns = np.ascontiguousarray(env.suns.reshape(-1), np.float32)
+            sh = np.ascontiguousarray(env.sh.reshape(-1), np.float32)
         fn = self._fn()
         out = torch.empty((n, 3), dtype=torch.float32, device=device)
         ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
@@ -1239,11 +1653,20 @@ class Megakernel:
                 packed.num_materials,
                 ptr(lights_f), ptr(lights_i), num_lights,
                 dptr(table), dptr(px), dptr(py), num_tiles,
+                env_mode, dptr(rad), dptr(pdf), dptr(rows),
+                env.height if env_mode else 0, env.width if env_mode else 0,
+                ptr(suns), env.num_suns if env_mode == 3 else 0, ptr(sh),
+                int(opts.bg_external),
                 stream,
             )
         if err != 0:
             raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
         return out
+
+
+# (opts.env, opts.env_nee) → the kernel's ENV template argument
+_ENV_MODES = {("none", False): 0, ("exact", False): 1, ("exact", True): 2, ("split", False): 3}
+_ENV_NAMES = ("", "env_exact", "env_nee", "env_split")
 
 
 def variant_name(opts: KernelOptions, tiles: bool = False) -> str:
@@ -1255,10 +1678,22 @@ def variant_name(opts: KernelOptions, tiles: bool = False) -> str:
             ("throughput", opts.legacy), ("tiles", tiles),
         ) if on
     ]
-    return "+".join(parts) or "main"
+    env = _ENV_NAMES[_ENV_MODES[(opts.env, opts.env_nee)]]
+    return "+".join(parts + ([env] if env else [])) or "main"
 
 
 KERNEL = Megakernel()
+
+
+def _add_background(rad: torch.Tensor, packed: PackedScene, opts: KernelOptions,
+                    num_samples: int) -> torch.Tensor:
+    """Split mode's exact background (the JAX ``_render_samples_impl``
+    composite): ``num_samples`` times the bilinear background of each primary
+    ray that misses every primitive, added outside the kernel."""
+    if not opts.bg_external:
+        return rad
+    env = packed.env
+    return rad + float(num_samples) * env.bg * env.bg_miss[:, None]
 
 
 def render_samples(
@@ -1268,29 +1703,57 @@ def render_samples(
     iter_base: int,
     num_samples: int,
     packed: Optional[PackedScene] = None,
+    env_rows: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Render ``num_samples`` samples of the full frame in one launch.
 
     Returns the [N, 3] radiance *sum* over iterations ``iter_base ..
     iter_base+num_samples-1`` (the caller adds it to its accumulator).
     ``seed`` is the int32 kernel seed; the module's ``TILE`` keys the hash
-    streams. ``packed`` (from :func:`pack_scene`, with the light table when
-    ``config.nee``) saves re-reading the scene tables on every call. A
-    scene on a CUDA device runs the CUDA kernel; a scene on the CPU runs the
-    plain version."""
-    opts = kernel_options(config)
+    streams. ``packed`` (from ``pack_scene(scene, nee=opts.nee,
+    config=config)``) saves re-reading the scene tables on every call, and
+    with it the call reads nothing back from the device. ``env_rows`` are
+    env NEE's rows of these iterations if the caller built them (a slice of
+    a larger table is fine: rows are keyed by absolute iteration). A scene
+    on a CUDA device runs the CUDA kernel; a scene on the CPU runs the plain
+    version. In split mode without antialiasing or lens, the exact
+    background is added after the launch."""
+    opts = kernel_options(config, scene, packed)
     if packed is None:
-        packed = pack_scene(scene, nee=opts.nee)
+        packed = pack_scene(scene, nee=opts.nee, config=config)
     n = packed.width * packed.height
     if opts.use_ld and n >= 1 << 24:
         raise ValueError("sampler='sobol' supports at most 2^24 pixels")
     device = scene.device
     if device.type == "cuda":
-        return KERNEL(packed, opts, seed, iter_base, num_samples, device)
-    if device.type == "cpu":
+        rad = KERNEL(packed, opts, seed, iter_base, num_samples, device, env_rows=env_rows)
+    elif device.type == "cpu":
         pix = torch.arange(n, dtype=torch.int64, device=device)
-        return render_samples_reference(pix, packed, opts, seed, iter_base, num_samples)
-    raise ValueError(f"unsupported device {device}")
+        rad = render_samples_reference(
+            pix, packed, opts, seed, iter_base, num_samples, env_rows=env_rows
+        )
+    else:
+        raise ValueError(f"unsupported device {device}")
+    return _add_background(rad, packed, opts, num_samples)
+
+
+def check_tiles_env(scene, config) -> None:
+    """The tile dispatch's environment limits (the JAX ``render_tiles``):
+    exact mode only, without ``nee``, up to ``MAX_ENV_EXACT_TEXELS``."""
+    if scene.envmap is None:
+        return
+    if config.env_mode == "split":
+        raise ValueError(
+            "render_tiles (adaptive sampling) does not carry "
+            "env_mode='split' — its exact-background composite needs "
+            "the full frame; use env_mode='exact' or render dense"
+        )
+    if config.nee:
+        raise ValueError(
+            "render_tiles (adaptive sampling): env NEE rows are keyed "
+            "by dense absolute iterations, which per-tile bases break; "
+            "render dense (render_samples) or use pipeline='fast'"
+        )
 
 
 def render_tiles(
@@ -1311,10 +1774,12 @@ def render_tiles(
     tile's next 1-based iteration, ``px``/``py`` [K·TILE] f32 the pixel
     coordinates of each tile's lanes (the caller owns the pixel→lane layout
     and scatters the result back). All live on the scene's device, so a
-    dispatch never reads them back to the host. Returns [K·TILE, 3]."""
-    opts = kernel_options(config)
+    dispatch never reads them back to the host. Returns [K·TILE, 3]. An
+    environment map renders in exact mode only (:func:`check_tiles_env`)."""
+    check_tiles_env(scene, config)
+    opts = kernel_options(config, scene, packed)
     if packed is None:
-        packed = pack_scene(scene, nee=opts.nee)
+        packed = pack_scene(scene, nee=opts.nee, config=config)
     if opts.use_ld and packed.width * packed.height >= 1 << 24:
         raise ValueError("sampler='sobol' supports at most 2^24 pixels")
     device = scene.device

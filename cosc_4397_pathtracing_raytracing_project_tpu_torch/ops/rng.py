@@ -15,9 +15,12 @@ The render seed is a plain int: the JAX package derives its kernel seed as
 ``int32(key_data[-1])`` of ``jax.random.PRNGKey(seed)``, whose last word is
 ``seed mod 2^32`` (:func:`kernel_seed`).
 
-The threefry streams of the JAX module (``bounce_uniforms``,
-``nee_uniforms``, ``pixel_jitter``, ...) are not ported yet (ROADMAP Queue 1
-item 9).
+The threefry-2x32 generator behind ``jax.random`` is here too
+(:func:`threefry2x32`, :func:`prng_key`, :func:`fold_in`, :func:`uniform`),
+bit-exact with ``jax.random`` under ``jax_threefry_partitionable=True``:
+the environment-NEE rows of the megakernel draw from it. The JAX module's
+per-pixel threefry streams (``bounce_uniforms``, ``nee_uniforms``,
+``pixel_jitter``, ...) are not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -159,6 +162,68 @@ def ld_u01(sobol_bits, seed) -> torch.Tensor:
     x = bit_reverse32(sobol_bits)
     x = bit_reverse32(laine_karras(x, seed))
     return to_u01(x >> 8)
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def threefry2x32(key, x0, x1):
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011; ``jax.random``'s
+    ``threefry2x32_p``): key ``(k0, k1)`` and counter words ``x0``/``x1``
+    (uint32 in int64 tensors, broadcast) → the two uint32 output words."""
+    k0, k1 = u32(key[0]), u32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (u32(x0) + ks[0]) & MASK32
+    x1 = (u32(x1) + ks[1]) & MASK32
+    for group in range(5):
+        for r in _THREEFRY_ROTATIONS[group % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(group + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(group + 2) % 3] + group + 1) & MASK32
+    return x0, x1
+
+
+def prng_key(seed) -> tuple:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: the key words
+    ``(0, seed mod 2^32)``."""
+    return (torch.zeros((), dtype=torch.int64), u32(seed))
+
+
+def fold_in(key, data) -> tuple:
+    """``jax.random.fold_in(key, data)``: the key hashed with the counter
+    ``(0, data mod 2^32)``. ``data`` may be a tensor of words; the result is
+    then a batch of keys."""
+    return threefry2x32(key, torch.zeros((), dtype=torch.int64), u32(data))
+
+
+def random_bits(key, shape) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32 in int64) under
+    ``jax_threefry_partitionable=True``: element ``i`` of the row-major
+    flattened shape hashes the 64-bit counter ``i`` split into (high, low)
+    words, and its bits are the XOR of the two output words. The key words
+    may carry leading batch dimensions (a batch of folded keys)."""
+    k0, k1 = u32(key[0]), u32(key[1])
+    n = int(np.prod(shape))
+    if n >= 1 << 32:
+        raise ValueError(f"random_bits: {n} elements exceed a 32-bit counter")
+    dev = k0.device
+    lo = torch.arange(n, dtype=torch.int64, device=dev).reshape(shape)
+    batch = k0.shape
+    lead = (...,) + (None,) * len(shape)
+    y0, y1 = threefry2x32((k0[lead], k1[lead]), torch.zeros((), dtype=torch.int64), lo)
+    return (y0 ^ y1).expand(batch + tuple(shape))
+
+
+def uniform(key, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` on [0, 1): the top 23
+    bits of each word as the mantissa of a float in [1, 2), minus 1."""
+    bits = (random_bits(key, shape) >> 9) | 0x3F800000
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).clamp_min(0.0)
 
 
 def ld_shuffled_index(index, shuffle_seed) -> torch.Tensor:

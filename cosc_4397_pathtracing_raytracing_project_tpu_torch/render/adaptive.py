@@ -205,13 +205,23 @@ class AdaptiveRenderer:
             self.scene = scene
             config = config or RenderConfig()
             self.image_name = "render"
+        if not megakernel.supports(self.scene):
+            raise ValueError(
+                "adaptive sampling runs on the megakernel pipeline "
+                "(analytic cube/sphere scenes)"
+            )
         if config.dof is None:
             config = dataclasses.replace(
                 config, dof=bool(float(self.scene.camera.aperture) > 0.0)
             )
+        # an environment renders in exact mode without nee (the JAX
+        # render_tiles' limits, checked here before any launch)
+        megakernel.check_tiles_env(self.scene, config)
         config.resolve_pipeline(self.scene)
         self.config = config
-        self._packed = megakernel.pack_scene(self.scene, nee=config.nee)
+        self._packed = megakernel.pack_scene(
+            self.scene, nee=megakernel.kernel_options(config, self.scene).nee, config=config
+        )
 
         w, h = self.scene.camera.resolution
         self._n = w * h

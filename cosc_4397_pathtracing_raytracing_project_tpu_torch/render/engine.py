@@ -5,10 +5,10 @@ of samples is rendered by :func:`make_pallas_step`, which launches the
 megakernel (``ops/cuda/megakernel.py``) once for every ``PALLAS_CHUNK``
 samples and adds each ``[N, 3]`` radiance sum into the accumulator. The
 pipeline keeps its JAX name, ``"pallas"``, so configurations carry over
-unchanged; it carries every estimator option of the megakernel except the
-environment map (NEE, refraction, depth of field, early exit, throughput
-gathering). Options the port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP item.
+unchanged; it carries every estimator option of the megakernel (NEE,
+refraction, depth of field, early exit, throughput gathering, and the
+environment map in ``'exact'`` and ``'split'`` mode). Options the port does
+not carry yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -57,11 +57,16 @@ class RenderConfig:
     pipeline: str = "auto"
 
     def resolve_pipeline(self, scene: Scene) -> str:
-        """``"pallas"`` (the megakernel) for the analytic scenes this port
-        renders, as the JAX package picks on its accelerator. Raises
-        ``NotImplementedError`` for every pipeline and option outside it,
-        naming the ROADMAP item that brings it, and ``ValueError`` for
-        ``nee`` with the throughput estimator, as the JAX kernel does."""
+        """``"pallas"`` (the megakernel) where the JAX package picks it on
+        its accelerator (`engine.py:161-210`): analytic scenes, and scenes
+        with an environment map in ``'split'`` mode, or in ``'exact'`` mode
+        when the map fits ``MAX_ENV_EXACT_TEXELS`` with ``light_only``
+        gathering and, under ``nee``, no analytic emitter. Where the JAX
+        package takes its fast pipeline instead, raises
+        ``NotImplementedError`` naming ROADMAP item 10; for every other
+        pipeline and option outside the port, ``NotImplementedError`` naming
+        its item; ``ValueError`` where the JAX kernel raises one (``nee``
+        or ``env_mode='split'`` with the throughput estimator)."""
         if self.sampler not in ("independent", "sobol"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.env_mode not in ("exact", "split"):
@@ -70,11 +75,6 @@ class RenderConfig:
             raise NotImplementedError(
                 f"pipeline={self.pipeline!r} is not ported yet (ROADMAP Queue 1 "
                 "items 9 'reference', 10 'fast', 12 'fast_mesh')"
-            )
-        if self.env_mode != "exact":
-            raise NotImplementedError(
-                "env_mode='split' is not ported yet (ROADMAP Queue 1 item 11, "
-                "kernel K5)"
             )
         if self.intersector == "bvh":
             raise NotImplementedError(
@@ -92,7 +92,20 @@ class RenderConfig:
                     f"{field} is a mesh-pipeline option, not ported yet "
                     "(ROADMAP Queue 1 item 12)"
                 )
-        megakernel.kernel_options(self)  # raises for invalid estimator options
+        if self.nee and self.gather_mode != "light_only":
+            raise ValueError("nee requires gather_mode='light_only'")
+        if scene.envmap is not None and self.env_mode == "exact":
+            in_kernel = self.gather_mode == "light_only" and megakernel.supports(scene)
+            if in_kernel and self.nee:
+                in_kernel = megakernel.static_light_table(scene) is None
+            if not in_kernel:
+                raise NotImplementedError(
+                    "this environment-map configuration runs on pipeline='fast' "
+                    "(an exact map past MAX_ENV_EXACT_TEXELS, throughput gathering, "
+                    "or nee with analytic emitters), which is not ported yet "
+                    "(ROADMAP Queue 1 item 10)"
+                )
+        megakernel.kernel_options(self, scene)  # raises for invalid estimator options
         return "pallas"
 
 
@@ -105,16 +118,28 @@ def make_pallas_step():
     num_samples) -> state``. It launches the kernel once for every
     ``PALLAS_CHUNK`` samples (iterations are 1-based, as in the reference)
     and adds each radiance sum into a new accumulator. The scene's host
-    tables (with the light table under ``config.nee``) are read once per
-    scene object (``set_camera`` replaces the scene, which repacks them)."""
-    packed_key = packed = None
+    tables (with the light table under analytic NEE, and the environment's
+    tables: the split mode's suns, SH and composited background) are
+    derived once per scene object and configuration (``set_camera``
+    replaces the scene, which repacks them). Under env NEE the shared rows
+    of all of a step's iterations are built once, before its first launch,
+    and each launch reads its slice."""
+    packed_key = packed = opts = None
 
     def step(scene: Scene, state: RenderState, config: RenderConfig, num_samples: int):
-        nonlocal packed_key, packed
-        if packed_key is None or packed_key[0] is not scene or packed_key[1] != config.nee:
-            packed_key, packed = (scene, config.nee), megakernel.pack_scene(scene, nee=config.nee)
+        nonlocal packed_key, packed, opts
+        if packed_key is None or packed_key[0] is not scene or packed_key[1] != config:
+            opts = megakernel.kernel_options(config, scene)
+            packed_key = (scene, config)
+            packed = megakernel.pack_scene(scene, nee=opts.nee, config=config)
+        rows = None
+        if opts.env_nee:
+            rows = megakernel.build_env_nee_rows(
+                scene.envmap, state.seed, state.iteration + 1, num_samples, config.trace_depth
+            )
         accum = state.accum
         done = 0
+        depth = config.trace_depth
         while done < num_samples:
             k = min(PALLAS_CHUNK, num_samples - done)
             accum = accum + megakernel.render_samples(
@@ -124,6 +149,7 @@ def make_pallas_step():
                 state.iteration + 1 + done,
                 k,
                 packed=packed,
+                env_rows=None if rows is None else rows[done * depth:(done + k) * depth],
             )
             done += k
         return dataclasses.replace(

@@ -6,7 +6,8 @@ torch tensors on one explicit device, in the same structure-of-arrays layout
 as the JAX package's flax pytrees: geometry is partitioned by primitive type
 (cubes / spheres) at build time.
 
-Triangle meshes and environment maps are not carried by this port yet;
+An ENVIRONMENT block becomes ``Scene.envmap``, an ``ops.envmap.EnvMap`` on
+the scene's device. Triangle meshes are not carried by this port yet;
 :meth:`Scene.from_desc` raises ``NotImplementedError`` for them.
 """
 
@@ -152,12 +153,14 @@ class Camera:
 
 @dataclasses.dataclass
 class Scene:
-    """Full device scene: partitioned analytic geometry + materials + camera."""
+    """Full device scene: partitioned analytic geometry + materials + camera,
+    and the environment map (None = the reference's gradient sky)."""
 
     cubes: GeomBatch
     spheres: GeomBatch
     materials: Materials
     camera: Camera
+    envmap: Optional[object] = None  # ops.envmap.EnvMap
 
     @property
     def device(self) -> torch.device:
@@ -176,11 +179,6 @@ class Scene:
             raise NotImplementedError(
                 "triangle meshes are not ported yet (ROADMAP Queue 1 item 12, "
                 "mesh pipeline)"
-            )
-        if desc.env_image is not None:
-            raise NotImplementedError(
-                "ENVIRONMENT maps are not ported yet (ROADMAP Queue 1 item 11, "
-                "environment maps)"
             )
         device = torch.device(device)
 
@@ -209,11 +207,17 @@ class Scene:
             ior=f32(desc.ior),
             emittance=f32(desc.emittance),
         )
+        env = None
+        if desc.env_image is not None:
+            from ..ops.envmap import build_envmap
+
+            env = build_envmap(desc.env_image, desc.env_strength, device)
         return cls(
             cubes=batch(CUBE),
             spheres=batch(SPHERE),
             materials=materials,
             camera=derive_camera(desc.camera, device),
+            envmap=env,
         )
 
 

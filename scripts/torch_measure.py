@@ -28,6 +28,16 @@ events, each kernel row 20 timed 50-sample launches after one warm-up:
 - the NEE quality leg (golden, NEE, sobol, antialias, render(1000)) and the
   adaptive leg (AdaptiveRenderer(golden, NEE + sobol).render(256)), each
   once under torch.profiler: device time per kernel and idle share;
+- the environment variants on scenes/env_spheres.txt (800×800, depth 8, the
+  meadow map), 20 timed 50-sample launches each: exact (independent, sobol,
+  refraction), env NEE (on prebuilt rows; the build of one launch's rows
+  is timed on its own), split with the background composited outside and
+  with antialiasing, and the tile dispatch with the exact environment over
+  16 tiles;
+- the exact, env-NEE and split legs (Renderer(env_spheres).render(1000),
+  samples_per_launch=200) once each under torch.profiler: device time per
+  kernel, the share of device time outside the megakernel (env NEE's row
+  build, the split composite's add) and the idle share;
 - the card's name, power limit, SM clock and temperature after the run.
 
 Prints the readings as one JSON object and writes it to --out.
@@ -114,6 +124,13 @@ def profile(fn):
     ]
     busy_us = sum(r[1] for r in rows)
     return rows, wall, 1.0 - busy_us * 1e-6 / wall
+
+
+def outside_share(rows):
+    """Share of the device time spent outside the megakernel's launches."""
+    total = sum(r[1] for r in rows)
+    kernel = sum(r[1] for r in rows if "pt_megakernel" in r[0])
+    return 1.0 - kernel / total if total else 0.0
 
 
 def smi(query):
@@ -236,6 +253,48 @@ def main() -> int:
     ada = AdaptiveRenderer(golden_path, cfg_a, device=device)
     rows, wall, idle = profile(lambda: ada.render(256))
     out["adaptive_profile"] = dict(wall_s=wall, device_kernels=rows, idle_share=idle)
+
+    env_path = os.path.join(REPO, "scenes", "env_spheres.txt")
+    env_scene = Scene.from_desc(load_scene_desc(env_path), device)
+    env_variants = {
+        "exact": RenderConfig(),
+        "exact_sobol": RenderConfig(sampler="sobol"),
+        "exact_refraction": RenderConfig(enable_refraction=True),
+        "env_nee": RenderConfig(nee=True),
+        "split": RenderConfig(env_mode="split"),
+        "split_aa": RenderConfig(env_mode="split", antialias=True),
+    }
+    for name, cfg in env_variants.items():
+        opts = mk.kernel_options(cfg, env_scene)
+        pk = mk.pack_scene(env_scene, nee=opts.nee, config=cfg)
+        rows = None
+        if opts.env_nee:
+            # the kernel alone on prebuilt rows, and the row build alone
+            rows = mk.build_env_nee_rows(env_scene.envmap, SEED, 1, CHUNK, opts.trace_depth)
+            out["env_nee_rows_ms"] = time_launches(
+                lambda: mk.build_env_nee_rows(env_scene.envmap, SEED, 1, CHUNK,
+                                              opts.trace_depth), REPS
+            )
+        out[f"kernel_env_{name}_ms"] = time_launches(
+            lambda: exact(pk, opts, SEED, 1, CHUNK, device, env_rows=rows), REPS
+        )
+    opts = mk.kernel_options(RenderConfig(sampler="sobol"), env_scene)
+    pk = mk.pack_scene(env_scene, config=RenderConfig(sampler="sobol"))
+    out["kernel_env_tiles16_ms"] = time_launches(
+        lambda: exact(pk, opts, SEED, 0, CHUNK, device, tiles=tiles), REPS
+    )
+    for name, cfg in (("exact", RenderConfig(samples_per_launch=200)),
+                      ("env_nee", RenderConfig(samples_per_launch=200, nee=True)),
+                      ("split", RenderConfig(samples_per_launch=200, env_mode="split"))):
+        leg = Renderer(env_path, cfg, device=device)
+        leg.step(200)
+        leg.reset()
+        rows, wall, idle = profile(lambda: leg.render(1000))
+        out[f"env_{name}_profile"] = dict(
+            wall_s=wall, device_kernels=rows, idle_share=idle,
+            outside_kernel_share=outside_share(rows),
+            rays_per_s=leg.scene.camera.pixel_count * 1000 / wall,
+        )
     out["smi_after"] = smi("clocks.current.sm,power.draw,power.limit,temperature.gpu")
 
     text = json.dumps(out, indent=1)

@@ -1,5 +1,8 @@
 """PyTorch port on a CUDA card: the hand-written megakernel against its plain
-PyTorch version, on the same small scenes as test_torch_megakernel.py.
+PyTorch version, on the same small scenes as test_torch_megakernel.py, the
+option scenes of slice 2 and the environment scenes of slice 3 (the meadow
+map of scenes/env_spheres.txt and small synthetic maps, whose helpers the
+CPU environment tests share).
 
 This module imports neither jax nor the JAX package, so it also runs where
 only the port is installed (``python -m pytest tests/test_torch_cuda.py
@@ -33,6 +36,7 @@ from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
     Scene,
     parse_scene,
 )
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import write_hdr
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as tmk
 
 torch.set_num_threads(2)
@@ -83,6 +87,95 @@ def with_aperture(text, aperture=0.3):
     """The camera with a thin lens, as the CLI's --aperture sets it
     (auto-focus on LOOKAT)."""
     return text.replace("LOOKAT", f"APERTURE    {aperture}\nLOOKAT", 1)
+
+
+def write_env_map(directory, kind):
+    """A small synthetic environment map as an HDR file in ``directory``:
+    'const' is 8×16 texels of 0.7, 'sun' 16×32 texels of a dim 0.05 sky
+    with one hard bright texel (the env-NEE stress case)."""
+    if kind == "const":
+        img = np.full((8, 16, 3), 0.7, np.float32)
+    else:
+        img = np.full((16, 32, 3), 0.05, np.float32)
+        img[4, 7] = [120.0, 100.0, 80.0]
+    return write_hdr(os.path.join(str(directory), f"{kind}.hdr"), img)
+
+
+def env_scene_text(map_file, res=64, light=False):
+    """A ground slab, a diffuse and a mirror sphere under the environment
+    ``map_file``; with ``light``, also a small emissive sphere."""
+    text = f"""MATERIAL 0
+RGB         .7 .7 .7
+SPECEX      0
+SPECRGB     0 0 0
+REFL        0
+REFR        0
+REFRIOR     0
+EMITTANCE   0
+
+MATERIAL 1
+RGB         .9 .9 .9
+SPECEX      0
+SPECRGB     .9 .9 .9
+REFL        1
+REFR        0
+REFRIOR     0
+EMITTANCE   0
+
+MATERIAL 2
+RGB         1 .9 .8
+SPECEX      0
+SPECRGB     0 0 0
+REFL        0
+REFR        0
+REFRIOR     0
+EMITTANCE   4
+
+ENVIRONMENT
+FILE {os.path.basename(map_file)}
+STRENGTH 1
+
+CAMERA
+RES         {res} {res}
+FOVY        35
+ITERATIONS  64
+DEPTH       3
+FILE        env
+EYE         0 1.5 7
+LOOKAT      0 0.5 0
+UP          0 1 0
+
+OBJECT 0
+cube
+material 0
+TRANS       0 -0.5 0
+ROTAT       0 0 0
+SCALE       20 1 20
+
+OBJECT 1
+sphere
+material 0
+TRANS       0.6 1 0
+ROTAT       0 0 0
+SCALE       2 2 2
+
+OBJECT 2
+sphere
+material 1
+TRANS       -1.6 0.6 1
+ROTAT       0 0 0
+SCALE       1.2 1.2 1.2
+"""
+    if light:
+        text += "\nOBJECT 3\nsphere\nmaterial 2\nTRANS 1.5 2.6 1\nROTAT 0 0 0\nSCALE .6 .6 .6\n"
+    return text
+
+
+def env_spheres_text(res=64, aperture=None):
+    """scenes/env_spheres.txt (the meadow map) at ``res``², optionally with
+    a thin lens."""
+    text = _scene_text("env_spheres.txt", res)
+    return with_aperture(text, aperture) if aperture is not None else text
 
 
 def _small(rotated=False):
@@ -150,6 +243,74 @@ def test_option_scenes_carry_their_options():
     lens, _ = _option_scene("glass-dof-nee-sobol", "cpu")
     assert float(lens.camera.aperture) == pytest.approx(0.3)
     assert np.any(tmk.pack_scene(lens).mats.reshape(-1, 10)[:, 9] > 0)
+
+
+# the environment variants (kernels K3-K5), 64×64, depth 8: (scene, config)
+ENV_CASES = {
+    "exact": ("meadow", None, dict()),
+    "exact-sobol-aa": ("meadow", None, dict(sampler="sobol", antialias=True)),
+    "exact-refraction-dof": ("meadow", 0.2, dict(enable_refraction=True, dof=True)),
+    "env-nee": ("meadow", None, dict(nee=True)),
+    "env-nee-refraction-sobol": ("meadow", None, dict(nee=True, enable_refraction=True,
+                                                     sampler="sobol")),
+    "split-composite": ("meadow", None, dict(env_mode="split")),
+    "split-aa-refraction": ("meadow", None, dict(env_mode="split", antialias=True,
+                                                 enable_refraction=True)),
+    "split-nee": ("sun+light", None, dict(env_mode="split", nee=True)),
+}
+
+
+def _env_case(case, device, tmp_path):
+    kind, aperture, cfg = ENV_CASES[case]
+    if kind == "meadow":
+        desc = parse_scene(env_spheres_text(aperture=aperture), base_dir=_SCENES)
+    else:
+        path = write_env_map(tmp_path, "sun")
+        desc = parse_scene(env_scene_text(path, light=True), base_dir=str(tmp_path))
+    return Scene.from_desc(desc, device), RenderConfig(**cfg)
+
+
+@pytest.mark.parametrize("case", list(ENV_CASES))
+def test_env_cases_carry_their_options(case, tmp_path):
+    """Each environment case selects the variant it names, on the CPU."""
+    scene, config = _env_case(case, "cpu", tmp_path)
+    opts = tmk.kernel_options(config, scene)
+    want = {"exact": "env_exact", "env": "env_nee", "split": "env_split"}[case.split("-")[0]]
+    assert tmk.variant_name(opts).endswith(want)
+    assert opts.nee == (case == "split-nee")
+    assert opts.bg_external == (case in ("split-composite", "split-nee"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ENV_CASES))
+def test_cuda_env_kernel_matches_plain_version(case, cuda, tmp_path):
+    scene, config = _env_case(case, cuda, tmp_path)
+    opts = tmk.kernel_options(config, scene)
+    packed = tmk.pack_scene(scene, nee=opts.nee, config=config)
+    launches = tmk.KERNEL.launches_by_variant.get(tmk.variant_name(opts), 0)
+    got = tmk.KERNEL(packed, opts, 7, 1, 2, cuda)
+    assert tmk.KERNEL.launches_by_variant[tmk.variant_name(opts)] == launches + 1
+    pix = torch.arange(scene.camera.pixel_count, device=cuda)
+    want = tmk.render_samples_reference(pix, packed, opts, 7, 1, 2)
+    assert_matches_plain_version(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_env_tile_dispatch_matches_plain_version(cuda):
+    """K6 with the exact environment (K3): 4 tiles with distinct bases."""
+    scene = Scene.from_desc(parse_scene(env_spheres_text(), base_dir=_SCENES), cuda)
+    config = RenderConfig(sampler="sobol")
+    opts = tmk.kernel_options(config, scene)
+    packed = tmk.pack_scene(scene, config=config)
+    ids = torch.tensor([1, 0, 1, 3], dtype=torch.int32, device=cuda)
+    bases = torch.tensor([1, 5, 9, 3], dtype=torch.int32, device=cuda)
+    flat = torch.as_tensor(np.random.default_rng(3).integers(0, 64 * 64, 4 * tmk.TILE),
+                           device=cuda)
+    px = (flat % 64).to(torch.float32)
+    py = (flat // 64).to(torch.float32)
+    got = tmk.render_tiles(scene, config, 7, ids, bases, px, py, 2, packed=packed)
+    want = tmk.render_tiles_reference(px, py, ids, bases, packed, opts, 7, 2)
+    assert_matches_plain_version(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -163,7 +163,7 @@ def test_cuda_device_is_explicit():
 @pytest.mark.parametrize(
     "overrides",
     [dict(pipeline="fast"), dict(pipeline="reference"), dict(intersector="bvh"),
-     dict(env_mode="split"), dict(mesh_sort_cells=4)],
+     dict(mesh_sort_cells=4)],
     ids=lambda d: next(iter(d)),
 )
 def test_unported_options_raise(overrides):

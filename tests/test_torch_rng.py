@@ -1,7 +1,8 @@
-"""PyTorch port, integer random streams: the LD lattice, the counter hash
-and the seed derivation, bit-exact against the JAX package on numpy-seeded
-pixel ids and iterations (including iterations past 2^20 and past the 2^21
-Sobol wrap)."""
+"""PyTorch port, integer random streams: the LD lattice, the counter hash,
+the seed derivation and the threefry-2x32 streams of ``jax.random``,
+bit-exact against the JAX package on numpy-seeded pixel ids and iterations
+(including iterations past 2^20 and past the 2^21 Sobol wrap, and seeds
+at and past 2^31)."""
 
 import jax
 import jax.numpy as jnp
@@ -132,3 +133,47 @@ def test_hash_prng_draw_sequence(draws):
         tp.reseed(tmk.mix(-7, it, depth, 5))
         for _ in range(5):
             _eq(tp.u01(), np.asarray(jp.u01((32, 128))).reshape(-1))
+
+
+THREEFRY_SEEDS = [0, 7, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1]
+
+
+def test_threefry_runs_partitionable():
+    """The layout the port's ``uniform`` reproduces is that of
+    ``jax_threefry_partitionable=True``, the JAX package's setting."""
+    assert jax.config.jax_threefry_partitionable
+
+
+@pytest.mark.parametrize("seed", THREEFRY_SEEDS)
+def test_threefry_key_fold_in_and_uniform(seed):
+    """``PRNGKey`` → ``fold_in`` (several iterations) → ``uniform(k, (D, 2))``
+    for D in {1, 3, 8}: bit-exact, one iteration at a time and batched."""
+    jkey = jax.random.PRNGKey(jnp.uint32(seed))
+    tkey = trng.prng_key(seed)
+    _eq(torch.stack(list(tkey)), np.asarray(jkey))
+    iters = [0, 1, 2, 50, 12345, 2**31 + 3]
+    for it in iters:
+        jk = jax.random.fold_in(jkey, jnp.uint32(it))
+        tk = trng.fold_in(tkey, it)
+        _eq(torch.stack(list(tk)), np.asarray(jk))
+        for d in (1, 3, 8):
+            _eq(trng.uniform(tk, (d, 2)), jax.random.uniform(jk, (d, 2), jnp.float32))
+    # batched: the key of every iteration at once, as the env-NEE rows draw
+    its = jnp.asarray(iters[:5], jnp.int32)
+    jks = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(jkey, its)
+    want = jax.vmap(lambda k: jax.random.uniform(k, (8, 2), jnp.float32))(jks)
+    _eq(trng.uniform(trng.fold_in(tkey, _t(np.asarray(its))), (8, 2)), want)
+
+
+@pytest.mark.parametrize("seed", [0, 2**31 + 99])
+def test_threefry_bits_and_block(seed, draws):
+    """The raw 20-round block and ``jax.random.bits`` over a non-square shape."""
+    jkey = jax.random.fold_in(jax.random.PRNGKey(jnp.uint32(seed)), 3)
+    tkey = trng.fold_in(trng.prng_key(seed), 3)
+    _eq(trng.random_bits(tkey, (5, 7)), jax.random.bits(jkey, (5, 7)))
+    x0, x1 = draws["u32"][:256], draws["u32"][256:]
+    from jax._src.prng import threefry_2x32
+
+    want = np.asarray(threefry_2x32(jkey, jnp.asarray(np.concatenate([x0, x1]))))
+    y0, y1 = trng.threefry2x32(tkey, _t(x0), _t(x1))
+    _eq(torch.cat([y0, y1]), want)

@@ -152,7 +152,7 @@ def test_scene_from_jax_arrays_matches_from_desc():
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
 
 
-@pytest.mark.parametrize("name", ["mesh1080p.txt", "env_spheres.txt"])
+@pytest.mark.parametrize("name", ["mesh1080p.txt"])
 def test_unported_scene_features_raise(name):
     desc = tparser.load_scene_desc(os.path.join(HERE, "..", "scenes", name))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
