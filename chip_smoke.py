@@ -5,9 +5,11 @@
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. build: compile the port's CUDA source into build/torch_kernels/ and
-   print ptxas' register and spill report for each compile-time variant of
-   the megakernel;
+1. build: compile the port's CUDA sources (csrc/megakernel.cu and
+   csrc/mesh_kernel.cu, the latter also as its work-counting build, one nvcc
+   each, started together) into build/torch_kernels/ and print ptxas'
+   register and spill report for each compile-time variant of the
+   megakernel and each instantiation of the mesh kernel;
 2. kernel vs plain: the megakernel against its plain PyTorch version on the
    card, at the main path's shapes (scenes/cornell.txt, 800×800, depth 8,
    2 spp, and the golden leg's antialiased variant), within the stated
@@ -55,14 +57,33 @@ Phases, in order; any failure raises and exits non-zero:
    ENV_NEE_SLACK (NEE reaches one bounce further);
 14. environment adaptive leg: AdaptiveRenderer(env_spheres, exact,
    sobol).render(256) through the tile dispatch with exact env;
-15. one JSON line describing each ported kernel, the card, the result line.
+15. peak device memory and the total time so far;
+16. the mesh kernels K7/K8 on scenes/mesh1080p.txt (1920×1080, depth 8,
+   38,530 triangles): the set-up's times (BVH build, packing, upload), then
+   the kernels against their plain version on the real rays of a 1-spp NEE
+   render (the primary rays, bounces 1 and 3, with dead rays inactive, and
+   bounce 1's shadow rays): shares of active rays whose t or index differ
+   (bound 1e-4 each), tie rays, normals and materials equal on every other
+   active ray, one launch's time (median of 20), the plain version's time
+   and work, and the bound from the kernel's own work (its counting build);
+17. mesh leg: Renderer(mesh1080p, sky_strength=1.0), warm-up step, then
+   render(64) (about 4 s on an H100): rays/s, ms/sample, K7 launches (8 a
+   sample); kernel pipeline against plain pipeline at 1 spp (share of
+   pixels with max-channel |Δ| > 1e-3 ≤ 1e-4, channel means within 1e-4);
+   sort on against sort off (rtol 1e-6, atol 1e-7);
+18. mesh NEE leg: the same with nee=True (K7 and K8 launches, kernel
+   against plain pipeline), and its channel means between the non-NEE
+   depth-8 and depth-9 means, 1% slack each side;
+19. one JSON line describing each ported kernel, the card, the result line.
 
 Every leg sets the launch counts to 0 just before it and reads them just
-after; a leg whose kernel variant was never launched fails. It needs a CUDA
+after; a leg whose kernel variant was never launched fails. Phases 1-15 are
+the megakernel's (kernels K1-K6), 16-18 the mesh pipeline's (K7, K8). It needs a CUDA
 device and the repository's files: without either it fails before printing
 any result.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -70,6 +91,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -130,7 +152,32 @@ FLOPS_SH9 = 74
 FLOPS_ENV_NEE = 27
 FLOPS_SUN = 17
 
+# the mesh kernels (csrc/mesh_kernel.cu), per ray: the three reciprocals of
+# the direction, per cluster or supercluster box one slab test (6 sub, 6 mul,
+# 6 min/max per axis pair, 3 max and 2 min), per triangle one Möller–Trumbore
+# test (46: the p/q crosses, det, its reciprocal, u, v, t, u + v), and K7's
+# final normalize; the counts of boxes and triangles are the kernel's own
+# (mesh_kernel.kernel_work)
+FLOPS_MESH_RAY = 3
+FLOPS_SLAB = 23
+FLOPS_TRIANGLE = 46
+FLOPS_MESH_NORMALIZE = 11
+# mesh legs: kernel pipeline against plain pipeline (the kernel-vs-plain
+# bounds above, per pixel), kernel against plain version per ray (share of
+# active rays whose t or index differ: ties on shared edges and boxes missed
+# by rounding), the sort-invariance bound of tests/test_fast_mesh.py, and the
+# slack of the NEE depth bracket (phase 7's)
+MESH_RAY_SHARE = 1e-4
+MESH_SORT_RTOL = 1e-6
+MESH_SORT_ATOL = 1e-7
+# samples of each mesh leg: fixed, so the NEE bracket reads the same noise on
+# any card (the non-NEE estimator's mean moves by up to 2% between blocks of
+# 32 samples on mesh1080p: heavy-tailed BRDF-sampled hits of the light; the
+# NEE means stay within 1e-5)
+MESH_SPP = 64
+
 PTX_VARIANT = re.compile(r"pt_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E")
+PTX_MESH = re.compile(r"pt_mesh_intersectILb(\d)E")
 
 
 def _check_close(got, want, what):
@@ -221,6 +268,189 @@ def _ptxas_report(log_text):
             rows.append((current, re.search(r"Used (\d+) registers", line).group(1), spill))
             current = None
     return rows
+
+
+def _mesh_ptxas_report(log_text):
+    """(kernel name, registers, spill line) per instantiation of the mesh
+    kernel in nvcc's log."""
+    rows, current, spill = [], None, ""
+    for line in log_text.splitlines():
+        m = PTX_MESH.search(line)
+        if m:
+            current, spill = ("K7 full" if m.group(1) == "1" else "K8 tmin"), ""
+        elif current and "spill" in line:
+            spill = line.strip()
+        elif current and "registers" in line:
+            rows.append((current, re.search(r"Used (\d+) registers", line).group(1), spill))
+            current = None
+    return rows
+
+
+def _median_ms(fn, reps=20):
+    """Median of ``reps`` launches, each timed with CUDA events."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[len(times) // 2]
+
+
+def _mesh_phases(device, seed, scene_path):
+    """Phases 16-18: the mesh kernels K7/K8 on mesh1080p.txt and the mesh
+    legs. Returns the kernels' errors, timings, launches and bounds."""
+    import numpy as np
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
+        RenderConfig,
+        Renderer,
+        Scene,
+        load_scene_desc,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import fast
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.bvh import build_bvh
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as mesh
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.lights import make_light_sampler
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import (
+        make_mesh_intersector,
+    )
+
+    mesh_path = scene_path("mesh1080p.txt")
+    print("[16] mesh kernels K7/K8 vs plain version, mesh1080p.txt 1920x1080, depth 8")
+    t0 = time.perf_counter()
+    scene = Scene.from_desc(load_scene_desc(mesh_path), device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    isect = make_mesh_intersector(scene)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tables = isect.tables
+    v0, e1, e2 = (t.cpu().numpy() for t in (scene.triangles.v0, scene.triangles.e1,
+                                              scene.triangles.e2))
+    t0 = time.perf_counter()
+    build_bvh(np.minimum(np.minimum(v0, v0 + e1), v0 + e2),
+              np.maximum(np.maximum(v0, v0 + e1), v0 + e2), leaf_size=8)
+    bvh_s = time.perf_counter() - t0
+    print(f"  set-up: parse + scene {load_s:.3f} s; intersector {setup_s:.3f} s: BVH build "
+          f"{bvh_s:.3f} s ({scene.num_triangles} triangles, leaf 8), then packing "
+          f"({tables.num_clusters} clusters, {tables.num_super} superclusters) and upload "
+          f"({tables.nbytes} bytes) {setup_s - bvh_s:.3f} s")
+    # the rays of a 1-spp NEE render, taken from the pipeline
+    cfg_nee = RenderConfig(sky_strength=1.0, nee=True)
+    sampler = make_light_sampler(scene)
+    rec = mesh.RayRecorder(isect)
+    fast.trace_sample_mesh(scene, cfg_nee, seed, 1, rec, light_sampler=sampler)
+    sets = {"primary": (rec.soa[0], True), "bounce 1": (rec.soa[1], True),
+            "bounce 3": (rec.soa[3], True), "bounce 1 shadow": (rec.tmin[1], False)}
+    readings = {}
+    for what, (rays, full) in sets.items():
+        mesh.KERNEL.reset_counts()
+        got = mesh.KERNEL(tables, *rays, full=full)
+        work = {}
+        t0 = time.perf_counter()
+        want = mesh.intersect_reference(tables, *rays, full=full, stats=work)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        a = rays[6] > 0.5
+        n_act = int(a.sum())
+        t_diff = a & (got[0] != want[0])
+        share_t = float(t_diff.sum()) / max(n_act, 1)
+        max_abs = float((got[0][a] - want[0][a]).abs().max()) if n_act else 0.0
+        share_i, ties, other = 0.0, 0, 0
+        if full:
+            i_diff = a & (got[1] != want[1])
+            share_i = float(i_diff.sum()) / max(n_act, 1)
+            ties = int((i_diff & ~t_diff).sum())
+            # normals and material on the active rays that are no tie
+            same = a & ~i_diff
+            other = sum(int((same & (g != w)).sum()) for g, w in zip(got[2:], want[2:]))
+        hits = int((a & (want[0] < mesh._MISS)).sum())
+        ms = _median_ms(lambda: mesh.KERNEL(tables, *rays, full=full))
+        n = rays[0].numel()
+        own = mesh.kernel_work(tables, *rays, full=full)
+        flops = (n_act * (FLOPS_MESH_RAY + (FLOPS_MESH_NORMALIZE if full else 0))
+                 + (own["sc_slab"] + own["cl_slab"]) * FLOPS_SLAB
+                 + own["tri"] * FLOPS_TRIANGLE)
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        t_bytes = (n * 7 * 4 + n * (24 if full else 4) + tables.nbytes) / PEAK_BYTES_PER_S * 1e3
+        bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        readings[what] = dict(err=max_abs, ms=ms, plain_ms=plain_ms, bound=bound)
+        print(f"  {what} ({'K7' if full else 'K8'}): {n} rays, {n_act} active, {hits} hit; "
+              f"t differs on {share_t:.2e}, index on {share_i:.2e} of active rays (bound "
+              f"{MESH_RAY_SHARE} each), {ties} tie rays, max|dt| {max_abs:.3e}, {other} "
+              f"differing normal or material outputs on the other active rays; one launch "
+              f"{ms:.3f} ms (median of 20), plain version {plain_ms:.1f} ms; kernel work "
+              f"{own['sc_slab']} supercluster + {own['cl_slab']} cluster slab + {own['tri']} "
+              f"triangle tests (plain version {work['slab']} slab + {work['tri']} triangle "
+              f"tests); bound {bound[0]:.4f} ms ({bound[1]})")
+        if share_t > MESH_RAY_SHARE or share_i > MESH_RAY_SHARE or other:
+            raise AssertionError(f"mesh kernel ({what}) disagrees with the plain version")
+        if not bool(torch.isfinite(got[0]).all()):
+            raise AssertionError(f"mesh kernel ({what}) output is not finite")
+    del rec, sets
+
+    legs = {}
+    for phase, name, cfg in (("[17]", "mesh", RenderConfig(sky_strength=1.0)),
+                             ("[18]", "mesh NEE", cfg_nee)):
+        print(f"{phase} {name} leg: Renderer(mesh1080p.txt, {cfg.sky_strength=}, {cfg.nee=})")
+        r = Renderer(mesh_path, cfg, device=device)
+        t0 = time.perf_counter()
+        r.step(1)  # warm-up
+        warm = time.perf_counter() - t0
+        spp = MESH_SPP
+        r.reset()
+        mesh.KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        r.render(spp)
+        wall = time.perf_counter() - t0
+        launches = dict(mesh.KERNEL.launches_by_mode)
+        img = r.linear_image()
+        pixels = r.scene.camera.pixel_count
+        print(f"  warm-up sample {warm:.3f} s; render({spp}): {pixels * spp / wall:.6e} rays/s, "
+              f"{wall / spp * 1e3:.3f} ms/sample; launches {launches}; mean {img.mean():.6f}")
+        want_launches = {"full": 8 * spp, **({"tmin": 8 * spp} if cfg.nee else {})}
+        if launches != want_launches:
+            raise AssertionError(f"the {name} leg launched {launches}, not {want_launches}")
+        w, h = r.scene.camera.resolution
+        if img.shape != (h, w, 3) or not np.isfinite(img).all() or not img.mean() > 0.0:
+            raise AssertionError(f"the {name} leg's image is malformed")
+        cluster = r._step.cluster
+        ls = make_light_sampler(r.scene) if cfg.nee else None
+        k_img = fast.trace_sample_mesh(r.scene, cfg, seed, 1, cluster, light_sampler=ls)
+        p_img = fast.trace_sample_mesh(r.scene, cfg, seed, 1, cluster.plain(), light_sampler=ls)
+        _check_close(k_img, p_img, f"{name}: kernel pipeline vs plain pipeline, 1 spp")
+        unsorted = fast.trace_sample_mesh(
+            r.scene, dataclasses.replace(cfg, mesh_ray_sort=False), seed, 1, cluster,
+            light_sampler=ls)
+        sort_gap = float((k_img - unsorted).abs().max())
+        print(f"  sort on vs off on the card: max |d| {sort_gap:.3e}")
+        torch.testing.assert_close(k_img, unsorted, rtol=MESH_SORT_RTOL, atol=MESH_SORT_ATOL)
+        legs[name] = dict(launches=launches, means=img.reshape(-1, 3).mean(0))
+
+    spp = MESH_SPP
+    deeper = Renderer(mesh_path, RenderConfig(sky_strength=1.0, trace_depth=9), device=device)
+    deeper.render(spp)
+    means_nee = legs["mesh NEE"]["means"]
+    means_d8 = legs["mesh"]["means"]
+    means_d9 = deeper.linear_image().reshape(-1, 3).mean(0)
+    below = float((1.0 - means_nee / means_d8).max())
+    above = float((means_nee / means_d9 - 1.0).max())
+    print(f"  channel means at {spp} spp: NEE depth 8 {means_nee.tolist()}, without NEE depth 8 "
+          f"{means_d8.tolist()}, depth 9 {means_d9.tolist()}; below depth 8 by {below:.4e}, "
+          f"above depth 9 by {above:.4e} (slack {NEE_MEAN_RTOL} each)")
+    if below > NEE_MEAN_RTOL or above > NEE_MEAN_RTOL:
+        raise AssertionError("mesh NEE's channel means leave the depth-8..9 bracket")
+    return {"readings": readings, "k7_launches": legs["mesh"]["launches"]["full"],
+            "k8_launches": legs["mesh NEE"]["launches"]["tmin"]}
 
 
 def _environment_phases(device, seed, chunk, pix, scene_path):
@@ -471,6 +701,7 @@ def main() -> int:
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import read_png
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import build
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as mesh
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.adaptive import (
         make_tile_layout,
     )
@@ -481,12 +712,24 @@ def main() -> int:
     chunk = 50
     seed = 0
 
-    # 1. build
+    # 1. build: one nvcc per source, started together
     print(f"[1] build ({torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
-    build.build(mk.KERNEL.name)
+
+    def timed_build(kernel):
+        build.build(kernel.name, kernel.flags)
+        return time.perf_counter() - t0
+
+    libs = {"megakernel": mk.KERNEL, "mesh_kernel": mesh.KERNEL,
+            "mesh_kernel (counting)": mesh.COUNTING}
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        done = {what: pool.submit(timed_build, kernel) for what, kernel in libs.items()}
+        for what, fut in done.items():
+            print(f"  {what} built after {fut.result():.1f} s")
     print(f"  built in {time.perf_counter() - t0:.1f} s")
+    for kernel, regs, spill in _mesh_ptxas_report(build.log_path(mesh.KERNEL.name).read_text()):
+        print(f"  ptxas: mesh {kernel}: {regs} registers; {spill}")
     report = _ptxas_report(build.log_path(mk.KERNEL.name).read_text())
     for variant, regs, spill in report:
         print(f"  ptxas: {variant}: {regs} registers; {spill}")
@@ -760,38 +1003,52 @@ def main() -> int:
         raise AssertionError("a tile got less than the warm-up's samples")
 
     env = _environment_phases(device, seed, chunk, pix, scene_path)
-
-    # 15. kernels, then the result
     print(f"[15] peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
+          f"{time.perf_counter() - t_start:.1f} s so far")
+
+    meshes = _mesh_phases(device, seed, scene_path)
+
+    # 19. kernels, then the result
+    print(f"[19] peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
           f"total {time.perf_counter() - t_start:.1f} s")
     src = "cosc_4397_pathtracing_raytracing_project_tpu/ops/pallas/megakernel.py"
 
-    def entry(name, replaces, launches, err, timing):
+    def entry(name, replaces, launches, err, timing, source=mk.SOURCE):
         k_ms, p_ms, (b_ms, b_by) = timing
         return {
-            "name": name, "route": "cuda", "source": mk.SOURCE, "replaces": f"{src}:{replaces}",
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         }
 
+    def mk_entry(name, line, launches, err, timing):
+        return entry(name, f"{src}:{line}", launches, err, timing)
+
+    def mesh_entry(name, what, launches):
+        rd = meshes["readings"][what]
+        return entry(name, src.replace("megakernel.py", "mesh_kernel.py:541"), launches,
+                     rd["err"], (rd["ms"], rd["plain_ms"], rd["bound"]), source=mesh.SOURCE)
+
     k1b_launches = sum(leg_launches["glass+dof"].values()) + sum(
         leg_launches["reference parity"].values())
     print(json.dumps({"kernels": [
-        entry("K1 megakernel", 2393, main_launches, max_abs_err, (ms, plain_ms, k1_bound)),
-        entry("K1b megakernel[refraction,dof,early_exit,throughput]", 1510, k1b_launches,
-              max(errs[k] for k in "cdef"), times["c"]),
-        entry("K2 megakernel[nee]", 1554, sum(nee_launches.values()),
-              max(errs[k] for k in "ab"), times["a"]),
-        entry("K3 megakernel[env exact]", 1055, env["launches"]["exact"],
-              max(env["errs"][k] for k in ("exact", "exact sobol", "exact refraction")),
-              env["times"]["exact"]),
-        entry("K4 megakernel[env nee]", 1673, env["launches"]["env NEE"], env["errs"]["env NEE"],
-              env["times"]["env NEE"]),
-        entry("K5 megakernel[env split]", 1312, env["launches"]["split"],
-              max(env["errs"][k] for k in ("split composite", "split aa")),
-              env["times"]["split composite"]),
-        entry("K6 megakernel[tiles]", 2173, sum(ada_launches.values()) + env["adaptive_launches"],
-              max(errs["g"], env["errs"]["exact tiles"]), times["g"]),
+        mk_entry("K1 megakernel", 2393, main_launches, max_abs_err, (ms, plain_ms, k1_bound)),
+        mk_entry("K1b megakernel[refraction,dof,early_exit,throughput]", 1510, k1b_launches,
+                 max(errs[k] for k in "cdef"), times["c"]),
+        mk_entry("K2 megakernel[nee]", 1554, sum(nee_launches.values()),
+                 max(errs[k] for k in "ab"), times["a"]),
+        mk_entry("K3 megakernel[env exact]", 1055, env["launches"]["exact"],
+                 max(env["errs"][k] for k in ("exact", "exact sobol", "exact refraction")),
+                 env["times"]["exact"]),
+        mk_entry("K4 megakernel[env nee]", 1673, env["launches"]["env NEE"], env["errs"]["env NEE"],
+                 env["times"]["env NEE"]),
+        mk_entry("K5 megakernel[env split]", 1312, env["launches"]["split"],
+                 max(env["errs"][k] for k in ("split composite", "split aa")),
+                 env["times"]["split composite"]),
+        mk_entry("K6 megakernel[tiles]", 2173, sum(ada_launches.values()) + env["adaptive_launches"],
+                 max(errs["g"], env["errs"]["exact tiles"]), times["g"]),
+        mesh_entry("K7 mesh_intersect[full]", "bounce 1", meshes["k7_launches"]),
+        mesh_entry("K8 mesh_intersect[tmin]", "bounce 1 shadow", meshes["k8_launches"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 Same scene format, estimator and random streams as
 ``cosc_4397_pathtracing_raytracing_project_tpu``; the megakernel that carries
-the main path is a hand-written CUDA kernel for Hopper
-(``csrc/megakernel.cu``), with a plain PyTorch version that runs on the CPU.
-This package imports torch and never jax.
+the analytic scenes (``csrc/megakernel.cu``) and the triangle kernels of the
+mesh pipeline (``csrc/mesh_kernel.cu``) are hand-written CUDA kernels for
+Hopper, each with a plain PyTorch version that runs on the CPU. This package
+imports torch and never jax.
 """
 
 from .render.adaptive import AdaptiveRenderer

@@ -17,13 +17,14 @@ import torch
 
 from .ops.envmap import EnvMap
 from .render.state import RenderState, kernel_seed
-from .scene.structs import Camera, GeomBatch, Materials, Scene
+from .scene.structs import Camera, GeomBatch, Materials, Scene, TriangleBatch
 
 _BATCH_FIELDS = ("material_id", "geom_index", "transform", "inv_transform", "inv_transpose")
 _MATERIAL_FIELDS = (
     "color", "specular_color", "specular_exponent", "reflectivity",
     "refractive", "ior", "emittance",
 )
+_TRIANGLE_FIELDS = ("v0", "e1", "e2", "normal", "material_id", "geom_index")
 _CAMERA_FIELDS = ("position", "view", "up", "right", "pixel_length", "aperture", "focal")
 
 
@@ -36,13 +37,9 @@ def scene_from_jax_arrays(d: Mapping, device) -> Scene:
     ``"resolution"`` (width, height). ``d["envmap"]``, if not None, is the
     JAX ``EnvMap`` (or a mapping of its fields ``img``, ``alias_prob``,
     ``alias_idx``, ``pdf``, ``strength``); its arrays carry over unchanged.
-    A non-empty ``d["triangles"]`` raises ``NotImplementedError``: this port
-    does not render meshes yet."""
-    tris = d.get("triangles")
-    if tris is not None and np.asarray(tris["material_id"]).shape[0]:
-        raise NotImplementedError(
-            "triangle meshes are not ported yet (ROADMAP Queue 1 item 12)"
-        )
+    ``d["triangles"]``, if given with a non-empty ``material_id``, maps each
+    ``TriangleBatch`` field to an array; otherwise the scene holds no
+    triangles."""
     device = torch.device(device)
 
     def tensor(a, dtype):
@@ -56,6 +53,14 @@ def scene_from_jax_arrays(d: Mapping, device) -> Scene:
             }
         )
 
+    tris = d.get("triangles")
+    if tris is not None and np.asarray(tris["material_id"]).shape[0]:
+        tris = TriangleBatch(**{
+            f: tensor(tris[f], np.int32 if f in ("material_id", "geom_index") else np.float32)
+            for f in _TRIANGLE_FIELDS
+        })
+    else:
+        tris = TriangleBatch.empty(device)
     env = d.get("envmap")
     if env is not None:
         fields = env if isinstance(env, Mapping) else vars(env)
@@ -77,6 +82,7 @@ def scene_from_jax_arrays(d: Mapping, device) -> Scene:
             **{f: tensor(cam[f], np.float32) for f in _CAMERA_FIELDS},
         ),
         envmap=env,
+        triangles=tris,
     )
 
 

@@ -1,3 +1,3 @@
-from . import megakernel
+from . import megakernel, mesh_kernel
 
-__all__ = ["megakernel"]
+__all__ = ["megakernel", "mesh_kernel"]

@@ -243,7 +243,7 @@ def static_light_table(scene) -> Optional[LightTable]:
     emitter. Raises ``ValueError`` when two lights share a material id: the
     MIS weight at an emissive hit identifies the light by its material.
     (Emissive triangles, which the JAX table also rejects, cannot reach
-    here: this port's scenes hold no triangles yet.)"""
+    here: scenes with triangles take the mesh pipeline.)"""
     emit = _host(scene.materials.emittance)
     colors = _host(scene.materials.color)
     kind, mat, a, tr, ait, det, le = [], [], [], [], [], [], []
@@ -430,8 +430,11 @@ class KernelOptions:
 
 def supports(scene) -> bool:
     """Whether the megakernel renders ``scene`` (the JAX ``supports``):
-    environment maps up to ``MAX_ENV_EXACT_TEXELS`` texels. Larger maps
-    belong to the fast pipeline (ROADMAP Queue 1 item 10)."""
+    analytic scenes (triangles take the mesh pipeline), with environment
+    maps up to ``MAX_ENV_EXACT_TEXELS`` texels. Larger maps belong to the
+    fast pipeline (ROADMAP Queue 1 item 10)."""
+    if scene.num_triangles:
+        return False
     if scene.envmap is not None:
         h, w = scene.envmap.shape
         if h * w > MAX_ENV_EXACT_TEXELS:

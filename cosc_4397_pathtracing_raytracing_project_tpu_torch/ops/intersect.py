@@ -7,7 +7,9 @@ off by 1e-4, and the returned ``t`` is the world-space distance to the
 backed-off hit point. Phase 1 computes every candidate's distance as
 ``[N, K]`` tensors; phase 2 reconstructs the winner's point and normal. The
 megakernel's split-mode background composite reads ``.miss`` from here.
-This port's scenes hold no triangles yet (ROADMAP Queue 1 item 12).
+Triangles are intersected by the mesh pipeline's cluster kernel
+(``ops/cuda/mesh_kernel.py``); the triangle branch of this readable
+intersector belongs to the reference pipeline (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -130,9 +132,10 @@ def intersect_scene(scene: Scene, origins: torch.Tensor, directions: torch.Tenso
     """Nearest-hit query over every analytic primitive (the computeIntersections
     kernel, `src/pathtrace.cu:288-333`). The winner's tables are gathered
     by index (the JAX package's one-hot matmul selects the same rows)."""
-    if getattr(scene, "triangles", None) is not None:
+    if scene.num_triangles:
         raise NotImplementedError(
-            "triangle intersection is not ported yet (ROADMAP Queue 1 item 12)"
+            "the reference intersector's triangle branch is not ported yet "
+            "(ROADMAP Queue 1 item 9); meshes render on pipeline='fast_mesh'"
         )
     kc, ks = scene.cubes.count, scene.spheres.count
     n = origins.shape[0]

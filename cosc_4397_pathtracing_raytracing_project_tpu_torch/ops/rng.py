@@ -18,9 +18,20 @@ The render seed is a plain int: the JAX package derives its kernel seed as
 The threefry-2x32 generator behind ``jax.random`` is here too
 (:func:`threefry2x32`, :func:`prng_key`, :func:`fold_in`, :func:`uniform`),
 bit-exact with ``jax.random`` under ``jax_threefry_partitionable=True``:
-the environment-NEE rows of the megakernel draw from it. The JAX module's
-per-pixel threefry streams (``bounce_uniforms``, ``nee_uniforms``,
-``pixel_jitter``, ...) are not ported yet (ROADMAP Queue 1 item 9).
+the environment-NEE rows of the megakernel draw from it, and so do the
+full-frame jitter and lens streams of the mesh pipeline
+(:func:`pixel_jitter`, :func:`lens_uniforms`).
+
+The mesh pipeline's per-bounce streams are keyed by pixel id, so a sorted
+wavefront draws the same numbers as an unsorted one: the counter hash
+(:func:`hash_bounce_uniforms`, :func:`hash_nee_uniforms`) and the LD
+lane-layout wrappers (:func:`ld_pixel_jitter`, :func:`ld_lens_uniforms`,
+:func:`ld_bounce_uniforms`, :func:`ld_nee_bounce_uniforms`). Where the JAX
+functions take the render key ``PRNGKey(seed)``, these take ``seed``: the
+hash streams read only the key's last word, ``seed mod 2^32``, and the
+threefry streams rebuild the key with :func:`prng_key`. The lane-indexed
+threefry streams of the other pipelines (``bounce_uniforms``,
+``nee_uniforms``, ``env_uniforms``) belong to ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -29,6 +40,14 @@ import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
+
+# Uniform lanes drawn per path per bounce, by role (`pathtrace.cu:368-436`).
+U_RR = 0  # Russian roulette keep/kill
+U_BRANCH = 1  # specular-vs-diffuse branch
+U_A = 2  # direction sample 1
+U_B = 3  # direction sample 2
+U_C = 4  # direction sample 3 (cone-perturb azimuth)
+NUM_LANES = 5
 
 SOBOL_NBITS = 21  # supports 2^21 (~2M) sample indices before wrap
 
@@ -235,3 +254,133 @@ def ld_shuffled_index(index, shuffle_seed) -> torch.Tensor:
     j = bit_reverse32(index) >> nb
     jp = laine_karras(j, shuffle_seed) & mask
     return bit_reverse32(jp) >> nb
+
+
+# ───────────────────────── pixel-keyed streams ─────────────────────────
+
+
+def _hash_seed(seed: int, iteration: int, depth: int) -> int:
+    """uint32 seed of one (render seed, iteration, depth) triple: the
+    injective counter ``iteration << 5 | depth & 31`` xored with the key
+    word times phi, through the murmur3 fmix32 finalizer. A Python int, so
+    the streams keyed by it take it as a scalar operand (no copy to the
+    device)."""
+    ctr = ((int(iteration) << 5) & MASK32) | (int(depth) & 31)
+    x = ctr ^ ((int(seed) & MASK32) * 0x9E3779B9 & MASK32)
+    x = ((x ^ (x >> 16)) * 0x85EBCA6B) & MASK32
+    x = ((x ^ (x >> 13)) * 0xC2B2AE35) & MASK32
+    return x ^ (x >> 16)
+
+
+def _hash_u01(seed: int, p: torch.Tensor, lane: int) -> torch.Tensor:
+    """One pixel-keyed u01 lane: avalanche of ``p ^ (seed + lane·phi)``."""
+    x = p ^ ((seed + (lane * 0x9E3779B9 & MASK32)) & MASK32)
+    x = mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = mul32(x ^ (x >> 15), 0x846CA68B)
+    x = x ^ (x >> 16)
+    return to_u01(x >> 8)
+
+
+def hash_bounce_uniforms(seed: int, iteration, depth, pixel_ids) -> torch.Tensor:
+    """``[NUM_LANES, n]`` f32 uniforms of one bounce from the counter hash,
+    keyed by pixel id: ``u[l, i]`` is a function of (seed, iteration, depth,
+    pixel_ids[i], l) alone."""
+    h = _hash_seed(seed, iteration, depth)
+    p = u32(pixel_ids)
+    return torch.stack([_hash_u01(h, p, lane) for lane in range(NUM_LANES)])
+
+
+def hash_nee_uniforms(seed: int, iteration, depth, pixel_ids) -> torch.Tensor:
+    """``[n, 3]`` NEE uniforms (light pick, two surface coordinates) from the
+    counter hash, keyed by pixel id, on lanes NUM_LANES..NUM_LANES+2
+    (disjoint from the bounce draws)."""
+    h = _hash_seed(seed, iteration, depth)
+    p = u32(pixel_ids)
+    return torch.stack(
+        [_hash_u01(h, p, lane) for lane in range(NUM_LANES, NUM_LANES + 3)], dim=-1
+    )
+
+
+def _frame_uniforms(seed: int, iteration, tag: int, n: int, device) -> torch.Tensor:
+    key = fold_in(fold_in(prng_key(seed), iteration), tag)
+    return uniform(tuple(k.to(device) for k in key), (n, 2))
+
+
+def pixel_jitter(seed: int, iteration, n: int, device="cpu") -> torch.Tensor:
+    """``[n, 2]`` sub-pixel jitter of the frame's first n pixels, the JAX
+    ``pixel_jitter``: ``uniform(fold_in(fold_in(PRNGKey(seed), iteration),
+    0x7EA), (n, 2))``."""
+    return _frame_uniforms(seed, iteration, 0x7EA, n, device)
+
+
+def lens_uniforms(seed: int, iteration, n: int, device="cpu") -> torch.Tensor:
+    """``[n, 2]`` lens-disk uniforms, keyed like :func:`pixel_jitter` on its
+    own fold constant (0xD0F)."""
+    return _frame_uniforms(seed, iteration, 0xD0F, n, device)
+
+
+def ld_uniform_pair(seed: int, iteration, pixel_ids, tag_u: int, tag_v: int) -> tuple:
+    """The per-pixel scrambled (0,2) pair of one dimension pair. (The pair
+    of a scalar iteration stays a 0-d host tensor, which device ops take as
+    a scalar.)"""
+    s0, s1 = sobol_pair(iteration)
+    return (
+        ld_u01(s0, ld_shift(seed, pixel_ids, tag_u)),
+        ld_u01(s1, ld_shift(seed, pixel_ids, tag_v)),
+    )
+
+
+def ld_pixel_jitter(seed: int, iteration, pixel_ids) -> torch.Tensor:
+    """``[n, 2]`` LD sub-pixel jitter, keyed by pixel id."""
+    u, v = ld_uniform_pair(seed, iteration, pixel_ids, LD_AA_X, LD_AA_Y)
+    return torch.stack([u, v], dim=1)
+
+
+def ld_lens_uniforms(seed: int, iteration, pixel_ids) -> torch.Tensor:
+    """``[n, 2]`` LD lens-disk uniforms, keyed by pixel id."""
+    u, v = ld_uniform_pair(seed, iteration, pixel_ids, LD_LENS_U, LD_LENS_V)
+    return torch.stack([u, v], dim=1)
+
+
+def _ld_depth_index(seed: int, iteration, pixel_ids, depth: int):
+    """Sample index of one bounce depth: the raw iteration at depth 0, the
+    per-(pixel, depth) Owen-shuffled index past it."""
+    if depth == 0:
+        return u32(iteration)
+    return ld_shuffled_index(
+        u32(iteration), ld_shift(seed, pixel_ids, _LD_SHUFFLE_TAG_BASE + depth)
+    )
+
+
+def ld_bounce_uniforms(seed: int, iteration, pixel_ids, depth: int = 0) -> torch.Tensor:
+    """``[NUM_LANES, n]`` bounce uniforms for ``sampler='sobol'``: branch and
+    the two direction draws from the LD lattice of ``depth`` (a Python int),
+    Russian roulette and the cone azimuth from the counter hash."""
+    h = _hash_seed(seed, iteration, depth)
+    p = u32(pixel_ids)
+    s0, s1 = sobol_pair(_ld_depth_index(seed, iteration, pixel_ids, depth))
+    t_branch, t_u, t_v = ld_bounce_tags(depth)
+    return torch.stack(
+        [
+            _hash_u01(h, p, U_RR),
+            ld_u01(s0, ld_shift(seed, pixel_ids, t_branch)),
+            ld_u01(s0, ld_shift(seed, pixel_ids, t_u)),
+            ld_u01(s1, ld_shift(seed, pixel_ids, t_v)),
+            _hash_u01(h, p, U_C),
+        ]
+    )
+
+
+def ld_nee_bounce_uniforms(seed: int, iteration, pixel_ids, depth: int = 0) -> torch.Tensor:
+    """``[n, 3]`` LD NEE uniforms for ``sampler='sobol'`` (light pick, the
+    light-surface pair), the layout of :func:`hash_nee_uniforms`."""
+    s0, s1 = sobol_pair(_ld_depth_index(seed, iteration, pixel_ids, depth))
+    t_pick, t_u, t_v = ld_nee_tags(depth)
+    return torch.stack(
+        [
+            ld_u01(s0, ld_shift(seed, pixel_ids, t_pick)),
+            ld_u01(s0, ld_shift(seed, pixel_ids, t_u)),
+            ld_u01(s1, ld_shift(seed, pixel_ids, t_v)),
+        ],
+        dim=-1,
+    )

@@ -1,14 +1,18 @@
-"""Render configuration, the megakernel step and the host-side Renderer.
+"""Render configuration, the step functions and the host-side Renderer.
 
-Port of the JAX package's ``render/engine.py`` for analytic scenes: a batch
-of samples is rendered by :func:`make_pallas_step`, which launches the
-megakernel (``ops/cuda/megakernel.py``) once for every ``PALLAS_CHUNK``
-samples and adds each ``[N, 3]`` radiance sum into the accumulator. The
-pipeline keeps its JAX name, ``"pallas"``, so configurations carry over
-unchanged; it carries every estimator option of the megakernel (NEE,
-refraction, depth of field, early exit, throughput gathering, and the
-environment map in ``'exact'`` and ``'split'`` mode). Options the port does
-not carry yet raise ``NotImplementedError`` naming their ROADMAP item.
+Port of the JAX package's ``render/engine.py`` for analytic and
+triangle-mesh scenes. An analytic scene renders through
+:func:`make_pallas_step`, which launches the megakernel
+(``ops/cuda/megakernel.py``) once for every ``PALLAS_CHUNK`` samples and
+adds each ``[N, 3]`` radiance sum into the accumulator; the pipeline keeps
+its JAX name, ``"pallas"``, and carries every estimator option of the
+megakernel (NEE, refraction, depth of field, early exit, throughput
+gathering, and the environment map in ``'exact'`` and ``'split'`` mode). A
+scene with triangles renders through :func:`make_mesh_step`, the
+``"fast_mesh"`` pipeline: one ``ops/fast.trace_sample_mesh`` wavefront per
+sample over the cluster-culled triangle kernels (``ops/cuda/mesh_kernel.py``).
+Options the port does not carry yet raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops import tonemap
+from ..ops import fast, tonemap
 from ..ops.cuda import megakernel
 from ..scene.parser import load_scene_desc
 from ..scene.structs import Scene, SceneDesc
@@ -57,43 +61,55 @@ class RenderConfig:
     pipeline: str = "auto"
 
     def resolve_pipeline(self, scene: Scene) -> str:
-        """``"pallas"`` (the megakernel) where the JAX package picks it on
-        its accelerator (`engine.py:161-210`): analytic scenes, and scenes
-        with an environment map in ``'split'`` mode, or in ``'exact'`` mode
-        when the map fits ``MAX_ENV_EXACT_TEXELS`` with ``light_only``
-        gathering and, under ``nee``, no analytic emitter. Where the JAX
-        package takes its fast pipeline instead, raises
-        ``NotImplementedError`` naming ROADMAP item 10; for every other
-        pipeline and option outside the port, ``NotImplementedError`` naming
-        its item; ``ValueError`` where the JAX kernel raises one (``nee``
-        or ``env_mode='split'`` with the throughput estimator)."""
+        """The pipeline the JAX package picks on its accelerator
+        (`engine.py:147-213`): ``"pallas"`` (the megakernel) for analytic
+        scenes, and for scenes with an environment map in ``'split'`` mode,
+        or in ``'exact'`` mode when the map fits ``MAX_ENV_EXACT_TEXELS``
+        with ``light_only`` gathering and, under ``nee``, no analytic
+        emitter; ``"fast_mesh"`` for scenes with triangles (``supports_mesh``),
+        under ``nee`` only with ``light_only`` gathering.
+        ``pipeline="fast_mesh"`` may be asked for on such a scene. Where the
+        JAX package takes its fast or reference pipeline instead, raises
+        ``NotImplementedError`` naming ROADMAP item 10 or 9; for every other
+        option outside the port, ``NotImplementedError`` naming its item;
+        ``ValueError`` where the JAX code raises one (``nee`` or
+        ``env_mode='split'`` with the throughput estimator)."""
         if self.sampler not in ("independent", "sobol"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
         if self.env_mode not in ("exact", "split"):
             raise ValueError(f"unknown env_mode {self.env_mode!r}")
-        if self.pipeline not in ("auto", "pallas"):
+        if self.gather_mode not in ("light_only", "throughput"):
+            raise ValueError(f"unknown gather_mode {self.gather_mode!r}")
+        if self.pipeline not in ("auto", "pallas", "fast_mesh"):
             raise NotImplementedError(
                 f"pipeline={self.pipeline!r} is not ported yet (ROADMAP Queue 1 "
-                "items 9 'reference', 10 'fast', 12 'fast_mesh')"
+                "items 9 'reference', 10 'fast')"
             )
         if self.intersector == "bvh":
             raise NotImplementedError(
-                "intersector='bvh' is not ported yet (ROADMAP Queue 1 item 12)"
+                "intersector='bvh' is not ported yet (ROADMAP Queue 1 item 9)"
             )
         if self.intersector not in ("auto", "bruteforce"):
             raise ValueError(f"unknown intersector {self.intersector!r}")
-        defaults = RenderConfig()
-        for field in (
-            "bvh_leaf_size", "mesh_ray_sort", "mesh_sort_every",
-            "mesh_sort_fused", "mesh_sort_cells",
-        ):
-            if getattr(self, field) != getattr(defaults, field):
-                raise NotImplementedError(
-                    f"{field} is a mesh-pipeline option, not ported yet "
-                    "(ROADMAP Queue 1 item 12)"
-                )
+        if self.bvh_leaf_size != RenderConfig().bvh_leaf_size:
+            raise NotImplementedError(
+                "bvh_leaf_size is an option of intersector='bvh', not ported yet "
+                "(ROADMAP Queue 1 item 9)"
+            )
         if self.nee and self.gather_mode != "light_only":
             raise ValueError("nee requires gather_mode='light_only'")
+        if scene.num_triangles:
+            if self.pipeline == "pallas":
+                raise ValueError("pipeline='pallas' renders analytic scenes only")
+            if not fast.supports_mesh(scene):
+                raise NotImplementedError(
+                    "a mesh scene with an environment map or more than "
+                    f"{fast.MAX_UNROLL} analytic primitives runs on "
+                    "pipeline='reference', which is not ported yet (ROADMAP Queue 1 item 9)"
+                )
+            return "fast_mesh"
+        if self.pipeline == "fast_mesh":
+            raise ValueError("pipeline='fast_mesh' needs a scene with triangles")
         if scene.envmap is not None and self.env_mode == "exact":
             in_kernel = self.gather_mode == "light_only" and megakernel.supports(scene)
             if in_kernel and self.nee:
@@ -159,6 +175,51 @@ def make_pallas_step():
     return step
 
 
+def make_mesh_intersector(scene: Scene):
+    """Cluster-culled triangle intersector over a BVH treelet partition (the
+    JAX ``make_mesh_intersector``): a BVH with leaf size 8 over the
+    triangles' AABBs, the triangle arrays permuted into its leaf order, the
+    clusters and superclusters cut as its subtrees. Its tables live on the
+    scene's device and depend on the triangles only."""
+    from ..ops.bvh import build_bvh
+    from ..ops.cuda.mesh_kernel import ClusterMeshIntersector
+
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    tri = scene.triangles
+    v0, e1, e2, mat = host(tri.v0), host(tri.e1), host(tri.e2), host(tri.material_id)
+    tmin = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
+    tmax = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    bvh = build_bvh(tmin, tmax, leaf_size=8)
+    order = bvh.order
+    return ClusterMeshIntersector(
+        v0[order], e1[order], e2[order], mat[order], bvh=bvh, device=scene.device,
+    )
+
+
+def make_mesh_step(scene: Scene, light_sampler=None):
+    """Step function of the mesh pipeline: ``step(scene, state, config,
+    num_samples) -> state`` renders one ``trace_sample_mesh`` per sample,
+    iterations ``state.iteration + 1 + i``, on the render seed ``state.seed``
+    (the JAX step's base key is ``PRNGKey(seed)``), and adds each into the
+    accumulator. The intersector, built here from the scene's triangles and
+    kept as ``step.cluster``, serves every later scene of the same
+    triangles, so a camera change reuses it. ``light_sampler`` enables NEE
+    when the configuration asks for it."""
+    cluster = make_mesh_intersector(scene)
+
+    def step(scene: Scene, state: RenderState, config: RenderConfig, num_samples: int):
+        accum = state.accum
+        for i in range(num_samples):
+            accum = accum + fast.trace_sample_mesh(
+                scene, config, state.seed, state.iteration + 1 + i, cluster,
+                light_sampler=light_sampler,
+            )
+        return dataclasses.replace(state, accum=accum, iteration=state.iteration + num_samples)
+
+    step.cluster = cluster
+    return step
+
+
 def _check_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -178,8 +239,11 @@ class Renderer:
 
     Same lifecycle and semantics as the JAX package's ``Renderer``: a camera
     change is a state reset plus a scene update. ``device`` is explicit: a
-    CUDA device runs the CUDA megakernel, ``"cpu"`` its plain PyTorch
-    version; a missing CUDA device raises."""
+    CUDA device runs the CUDA kernels (the megakernel, or the mesh kernels
+    of a scene with triangles), ``"cpu"`` their plain PyTorch versions; a
+    missing CUDA device raises. A mesh scene's intersector is built once
+    here; ``set_camera`` keeps it (its tables depend on the triangles
+    only)."""
 
     def __init__(
         self,
@@ -222,8 +286,23 @@ class Renderer:
         self._host_iteration = 0
         # opt-in reference-parity PSNR snapshot (see step())
         self.psnr_snapshot = False
-        config.resolve_pipeline(self.scene)
-        self._step = make_pallas_step()
+        self.pipeline = config.resolve_pipeline(self.scene)
+        if self.pipeline == "fast_mesh":
+            sampler = None
+            if config.nee:
+                from ..ops.lights import make_light_sampler
+
+                sampler = make_light_sampler(self.scene)
+                if sampler is None:
+                    # emissive triangles stay BRDF-sampled; NEE needs at
+                    # least one analytic (cube/sphere) emitter to aim at
+                    raise ValueError(
+                        "config.nee=True but the scene has no emissive "
+                        "analytic (cube/sphere) lights to sample"
+                    )
+            self._step = make_mesh_step(self.scene, light_sampler=sampler)
+        else:
+            self._step = make_pallas_step()
 
     @property
     def iteration(self) -> int:

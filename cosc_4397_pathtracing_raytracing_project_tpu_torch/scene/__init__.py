@@ -8,6 +8,7 @@ from .structs import (
     Materials,
     Scene,
     SceneDesc,
+    TriangleBatch,
     camera_basis_from_spherical,
     derive_camera,
     spherical_from_view,
@@ -26,6 +27,7 @@ __all__ = [
     "Scene",
     "SceneDesc",
     "SceneParseError",
+    "TriangleBatch",
     "camera_basis_from_spherical",
     "derive_camera",
     "spherical_from_view",

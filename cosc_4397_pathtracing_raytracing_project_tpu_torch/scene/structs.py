@@ -7,8 +7,10 @@ as the JAX package's flax pytrees: geometry is partitioned by primitive type
 (cubes / spheres) at build time.
 
 An ENVIRONMENT block becomes ``Scene.envmap``, an ``ops.envmap.EnvMap`` on
-the scene's device. Triangle meshes are not carried by this port yet;
-:meth:`Scene.from_desc` raises ``NotImplementedError`` for them.
+the scene's device. Triangle meshes (``mesh`` objects, already in world space
+after parsing) become ``Scene.triangles``, a :class:`TriangleBatch` of
+``v0``/``e1``/``e2`` rows, as the JAX package's ``Scene.from_desc`` builds
+it; a scene without meshes carries an empty batch.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 # Primitive type ids (reference enum GeomType, `src/sceneStructs.h:10-13`)
 CUBE = 0
 SPHERE = 1
-TRIANGLE = 2  # extension: triangle meshes (not rendered by this port yet)
+TRIANGLE = 2  # extension: triangle meshes
 
 
 # ─────────────────────────── host-side description ───────────────────────────
@@ -126,6 +128,29 @@ class GeomBatch:
 
 
 @dataclasses.dataclass
+class TriangleBatch:
+    """World-space triangle soup (the mesh extension; the reference declares
+    triangle fields in `sceneStructs.h:30-35` but never fills them)."""
+
+    v0: torch.Tensor  # (T, 3) f32
+    e1: torch.Tensor  # (T, 3) f32, v1 - v0
+    e2: torch.Tensor  # (T, 3) f32, v2 - v0
+    normal: torch.Tensor  # (T, 3) f32, unit geometric normal
+    material_id: torch.Tensor  # (T,) i32
+    geom_index: torch.Tensor  # (T,) i32, num_geoms + triangle index
+
+    @property
+    def count(self) -> int:
+        return int(self.material_id.shape[0])
+
+    @classmethod
+    def empty(cls, device) -> "TriangleBatch":
+        z3 = torch.zeros((0, 3), dtype=torch.float32, device=device)
+        zi = torch.zeros((0,), dtype=torch.int32, device=device)
+        return cls(v0=z3, e1=z3, e2=z3, normal=z3, material_id=zi, geom_index=zi)
+
+
+@dataclasses.dataclass
 class Camera:
     """Derived render camera (tensors on the scene's device)."""
 
@@ -153,14 +178,16 @@ class Camera:
 
 @dataclasses.dataclass
 class Scene:
-    """Full device scene: partitioned analytic geometry + materials + camera,
-    and the environment map (None = the reference's gradient sky)."""
+    """Full device scene: partitioned analytic geometry, the triangle soup
+    (None counts as empty), materials, camera, and the environment map
+    (None = the reference's gradient sky)."""
 
     cubes: GeomBatch
     spheres: GeomBatch
     materials: Materials
     camera: Camera
     envmap: Optional[object] = None  # ops.envmap.EnvMap
+    triangles: Optional[TriangleBatch] = None
 
     @property
     def device(self) -> torch.device:
@@ -170,16 +197,15 @@ class Scene:
     def num_primitives(self) -> int:
         return self.cubes.count + self.spheres.count
 
+    @property
+    def num_triangles(self) -> int:
+        return 0 if self.triangles is None else self.triangles.count
+
     def replace(self, **changes) -> "Scene":
         return dataclasses.replace(self, **changes)
 
     @classmethod
     def from_desc(cls, desc: SceneDesc, device) -> "Scene":
-        if desc.num_triangles:
-            raise NotImplementedError(
-                "triangle meshes are not ported yet (ROADMAP Queue 1 item 12, "
-                "mesh pipeline)"
-            )
         device = torch.device(device)
 
         def f32(a):
@@ -207,6 +233,22 @@ class Scene:
             ior=f32(desc.ior),
             emittance=f32(desc.emittance),
         )
+        tris = TriangleBatch.empty(device)
+        if desc.num_triangles:
+            # the JAX Scene.from_desc's float32 edges and normalized normals
+            v = np.asarray(desc.tri_vertices, np.float32)
+            e1 = v[:, 1] - v[:, 0]
+            e2 = v[:, 2] - v[:, 0]
+            n = np.cross(e1, e2)
+            n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20)
+            tris = TriangleBatch(
+                v0=f32(v[:, 0]),
+                e1=f32(e1),
+                e2=f32(e2),
+                normal=f32(n),
+                material_id=i32(desc.tri_material_id),
+                geom_index=i32(desc.num_geoms + np.arange(desc.num_triangles)),
+            )
         env = None
         if desc.env_image is not None:
             from ..ops.envmap import build_envmap
@@ -218,6 +260,7 @@ class Scene:
             materials=materials,
             camera=derive_camera(desc.camera, device),
             envmap=env,
+            triangles=tris,
         )
 
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Measure the PyTorch/CUDA port's megakernel on one CUDA card.
+"""Measure the PyTorch/CUDA port's kernels on one CUDA card.
 
-    python3 scripts/torch_measure.py [--out build/torch_measure.json]
+    python3 scripts/torch_measure.py [--out build/torch_measure.json] [--legs megakernel,mesh]
 
-All at 800×800 on scenes/cornell.txt, depth 8, seed 0; times from CUDA
-events, each kernel row 20 timed 50-sample launches after one warm-up:
+The megakernel legs (``--legs megakernel``), all at 800×800 on
+scenes/cornell.txt, depth 8, seed 0; times from CUDA events, each kernel row
+20 timed 50-sample launches after one warm-up:
 
 - the kernel in the main configuration (sobol, no antialiasing, hoisted
   primary), antialiased (the golden leg's), and with the independent sampler;
@@ -38,12 +39,28 @@ events, each kernel row 20 timed 50-sample launches after one warm-up:
   samples_per_launch=200) once each under torch.profiler: device time per
   kernel, the share of device time outside the megakernel (env NEE's row
   build, the split composite's add) and the idle share;
-- the card's name, power limit, SM clock and temperature after the run.
 
+The mesh legs (``--legs mesh``), scenes/mesh1080p.txt at 1920×1080, depth 8,
+sky_strength 1.0, without and with NEE:
+
+- K7 (and K8 with NEE) on the rays of bounce 1 of a 1-spp render, 20 timed
+  launches each;
+- 3 laps of Renderer.render(4) after a warm-up sample: rays/s and ms/sample;
+- one render(4) under torch.profiler: device time in K7, K8, the sort and
+  gathers (the radix sort, the gathers of the payloads by its permutation,
+  the final scatter by pixel id, and under NEE the light table's row
+  gathers) and everything else (shading, the pixel-keyed streams, the
+  analytic primitives), and the device's idle share of the wall;
+- channel means of render(96) without NEE at depths 8 and 9 and with NEE at
+  depth 8 (the NEE depth bracket of chip_smoke.py at three times its
+  samples).
+
+Both end with the card's name, power limit, SM clock and temperature.
 Prints the readings as one JSON object and writes it to --out.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -69,6 +86,11 @@ from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.adaptive import (
 )
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import build  # noqa: E402
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk  # noqa: E402
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as mesh  # noqa: E402
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import fast  # noqa: E402
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.lights import (  # noqa: E402
+    make_light_sampler,
+)
 
 CHUNK = 50
 REPS = 20
@@ -133,6 +155,62 @@ def outside_share(rows):
     return 1.0 - kernel / total if total else 0.0
 
 
+def mesh_groups(rows):
+    """Device microseconds of a mesh render by part: K7, K8, the sort and
+    gathers (radix sort kernels, gather and index kernels) and the rest."""
+    groups = {"K7": 0.0, "K8": 0.0, "sort+gathers": 0.0, "other": 0.0}
+    for name, us, _count in rows:
+        if "pt_mesh_intersect" in name:
+            groups["K7" if ("<true>" in name or "ILb1E" in name) else "K8"] += us
+        elif any(k in name.lower() for k in ("sort", "radix", "gather", "index")):
+            groups["sort+gathers"] += us
+        else:
+            groups["other"] += us
+    return groups
+
+
+def measure_mesh(device, out):
+    path = os.path.join(REPO, "scenes", "mesh1080p.txt")
+    for name, cfg in (("mesh", RenderConfig(sky_strength=1.0)),
+                      ("mesh_nee", RenderConfig(sky_strength=1.0, nee=True))):
+        r = Renderer(path, cfg, device=device)
+        cluster = r._step.cluster
+        sampler = make_light_sampler(r.scene) if cfg.nee else None
+        rec = mesh.RayRecorder(cluster)
+        fast.trace_sample_mesh(r.scene, cfg, SEED, 1, rec, light_sampler=sampler)
+        rays = rec.soa[1]
+        out[f"{name}_k7_bounce1_ms"] = time_launches(
+            lambda: mesh.KERNEL(cluster.tables, *rays, full=True), REPS)
+        if cfg.nee:
+            shadow = rec.tmin[1]
+            out[f"{name}_k8_bounce1_ms"] = time_launches(
+                lambda: mesh.KERNEL(cluster.tables, *shadow, full=False), REPS)
+        del rec, rays
+        r.step(1)  # warm-up
+        walls = []
+        for _ in range(3):
+            r.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(4)
+            walls.append(time.perf_counter() - t0)
+        pixels = r.scene.camera.pixel_count
+        out[f"{name}_rays_per_s"] = stats([pixels * 4 / w for w in walls])
+        out[f"{name}_ms_per_sample"] = stats([w / 4 * 1e3 for w in walls])
+        r.reset()
+        rows, wall, idle = profile(lambda: r.render(4))
+        out[f"{name}_profile"] = dict(wall_s=wall, idle_share=idle, device_us=mesh_groups(rows),
+                                      device_kernels=rows)
+    means = {}
+    for name, cfg in (("depth8", RenderConfig(sky_strength=1.0)),
+                      ("depth9", RenderConfig(sky_strength=1.0, trace_depth=9)),
+                      ("nee_depth8", RenderConfig(sky_strength=1.0, nee=True))):
+        r = Renderer(path, dataclasses.replace(cfg, samples_per_launch=96), device=device)
+        r.render(96)
+        means[name] = r.linear_image().reshape(-1, 3).mean(0).tolist()
+    out["mesh_means_96spp"] = means
+
+
 def smi(query):
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -143,13 +221,33 @@ def smi(query):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "build", "torch_measure.json"))
+    ap.add_argument("--legs", default="megakernel,mesh",
+                    help="comma-separated: megakernel, mesh")
     args = ap.parse_args()
+    legs = set(args.legs.split(","))
+    if not legs or legs - {"megakernel", "mesh"}:
+        ap.error(f"unknown legs {args.legs!r}")
     if not torch.cuda.is_available():
         print("torch_measure: no CUDA device available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
     out = {"card": smi("name,power.limit"), "torch": torch.__version__,
            "cuda": torch.version.cuda}
+    if "megakernel" in legs:
+        measure_megakernel(device, out)
+    if "mesh" in legs:
+        measure_mesh(device, out)
+    out["smi_after"] = smi("clocks.current.sm,power.draw,power.limit,temperature.gpu")
+
+    text = json.dumps(out, indent=1)
+    print(text)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(text + "\n")
+    return 0
+
+
+def measure_megakernel(device, out):
 
     scene = Scene.from_desc(load_scene_desc(os.path.join(REPO, "scenes", "cornell.txt")), device)
     packed = mk.pack_scene(scene)
@@ -295,14 +393,6 @@ def main() -> int:
             outside_kernel_share=outside_share(rows),
             rays_per_s=leg.scene.camera.pixel_count * 1000 / wall,
         )
-    out["smi_after"] = smi("clocks.current.sm,power.draw,power.limit,temperature.gpu")
-
-    text = json.dumps(out, indent=1)
-    print(text)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
-        f.write(text + "\n")
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""PyTorch port on a CUDA card: the hand-written megakernel against its plain
-PyTorch version, on the same small scenes as test_torch_megakernel.py, the
-option scenes of slice 2 and the environment scenes of slice 3 (the meadow
-map of scenes/env_spheres.txt and small synthetic maps, whose helpers the
-CPU environment tests share).
+"""PyTorch port on a CUDA card: the hand-written kernels against their plain
+PyTorch versions. The megakernel on the same small scenes as
+test_torch_megakernel.py, the option scenes of slice 2 and the environment
+scenes of slice 3 (the meadow map of scenes/env_spheres.txt and small
+synthetic maps, whose helpers the CPU environment tests share); the mesh
+kernels K7/K8 on random triangle soups and scenes/mesh1080p.txt, and the
+mesh pipeline's Renderer (the triangle helpers are shared with the CPU mesh
+tests).
 
 This module imports neither jax nor the JAX package, so it also runs where
 only the port is installed (``python -m pytest tests/test_torch_cuda.py
@@ -33,11 +36,22 @@ import torch
 from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
     AdaptiveRenderer,
     RenderConfig,
+    Renderer,
     Scene,
     parse_scene,
 )
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import write_hdr
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import fast
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as tmk
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as tmesh
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import (
+    make_mesh_intersector,
+)
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.scene import (
+    CameraDesc,
+    SceneDesc,
+    transforms,
+)
 
 torch.set_num_threads(2)
 
@@ -176,6 +190,152 @@ def env_spheres_text(res=64, aperture=None):
     a thin lens."""
     text = _scene_text("env_spheres.txt", res)
     return with_aperture(text, aperture) if aperture is not None else text
+
+
+def tri_scene_desc(res=32):
+    """tests/test_fast_mesh.py's ``tri_scene``: an emissive slab (a cube,
+    material 0) above a triangulated 8×8 floor of 72 triangles (material 1),
+    at ``res``²."""
+    tf, inv, invt = transforms.geom_matrices([0, 4, 0], [0, 0, 0], [2, 0.2, 2])
+    xs = np.linspace(-4, 4, 7)
+    verts = []
+    for i in range(6):
+        for j in range(6):
+            a = [xs[i], 0, xs[j]]
+            b = [xs[i + 1], 0, xs[j]]
+            c = [xs[i], 0, xs[j + 1]]
+            d = [xs[i + 1], 0, xs[j + 1]]
+            verts.append([a, b, c])
+            verts.append([b, d, c])
+    tri = np.asarray(verts, np.float32)
+    return SceneDesc(
+        geom_type=np.array([0], np.int32),
+        material_id=np.array([0], np.int32),
+        translation=np.array([[0, 4, 0]], np.float32),
+        rotation=np.zeros((1, 3), np.float32),
+        scale=np.array([[2, 0.2, 2]], np.float32),
+        transform=tf[None],
+        inv_transform=inv[None],
+        inv_transpose=invt[None],
+        color=np.array([[1, 1, 1], [0.7, 0.5, 0.3]], np.float32),
+        specular_exponent=np.zeros(2, np.float32),
+        specular_color=np.zeros((2, 3), np.float32),
+        reflectivity=np.zeros(2, np.float32),
+        refractive=np.zeros(2, np.float32),
+        ior=np.zeros(2, np.float32),
+        emittance=np.array([5, 0], np.float32),
+        camera=CameraDesc(
+            (res, res), 45.0, np.array([0, 2.5, 9.0]), np.array([0, 1.5, 0.0]),
+            np.array([0, 1, 0.0]),
+        ),
+        tri_vertices=tri,
+        tri_material_id=np.full(len(tri), 1, np.int32),
+    )
+
+
+def triangle_soup(seed, t=300):
+    """A random soup of ``t`` triangles (tests/test_megakernel.py's cluster
+    kernel case): (v0, e1, e2, material ids) f32 / i32."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-5, 5, (t, 3)).astype(np.float32)
+    e1 = rng.normal(size=(t, 3)).astype(np.float32)
+    e2 = rng.normal(size=(t, 3)).astype(np.float32)
+    return v0, e1, e2, rng.integers(0, 4, t).astype(np.int32)
+
+
+def soup_rays(seed, n=512, inactive_every=5):
+    """``n`` rays through the soup's volume: origins in [-8, 8]³, unit
+    directions, every ``inactive_every``-th ray inactive; as f32 numpy
+    (ox, oy, oz, dx, dy, dz, active)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-8, 8, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    active = np.ones(n, np.float32)
+    active[::inactive_every] = 0.0
+    return (*o.T, *d.T, active)
+
+
+def brute_force_mt(v0, e1, e2, rays):
+    """Nearest hit of every ray over every triangle in index order, with the
+    kernel's float32 Möller–Trumbore arithmetic (numpy rounds every
+    operation, as the plain version does): (t [n], idx [n])."""
+    ox, oy, oz, dx, dy, dz = (np.asarray(r, np.float32)[:, None] for r in rays[:6])
+    v0x, v0y, v0z = v0.T[:, None, :]
+    e1x, e1y, e1z = e1.T[:, None, :]
+    e2x, e2y, e2z = e2.T[:, None, :]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    big = np.abs(det) > np.float32(1e-9)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv_det = np.where(big, np.float32(1.0) / det, np.float32(0.0))
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = big & (u >= 0) & (v >= 0) & (u + v <= 1) & (t > np.float32(1e-4)) & (t < 1e30)
+    tt = np.where(ok, t, np.float32(np.inf))
+    idx = np.argmin(tt, axis=1)  # the first least distance, as a strict < in index order
+    best = tt[np.arange(tt.shape[0]), idx]
+    hit = np.isfinite(best)
+    return np.where(hit, best, np.float32(1e30)).astype(np.float32), np.where(hit, idx, -1)
+
+
+def octant_walk(tables, rays):
+    """The CUDA mesh kernel's walk, ray by ray in numpy: an active ray
+    slab-tests every supercluster of its direction octant front to back, the
+    16 clusters of each one it enters, and the rows of each cluster it
+    enters (brute_force_mt, whose first least distance is what a strict
+    ``t < best_t`` in row order keeps), all against its running best t.
+    Returns (t [n], idx [n], work): ``work`` counts the supercluster slab
+    tests ('sc_slab'), cluster slab tests ('cl_slab') and triangle tests
+    ('tri'), as the kernel's counting build does."""
+    tri = tables.tri_rows.cpu().numpy()
+    sc = tables.sc_rows.cpu().numpy()
+    cl = tables.cl_rows.cpu().numpy()
+    s_count, cs = tables.num_super, tables.cluster_size
+    ox, oy, oz, dx, dy, dz, active = (np.asarray(r, np.float32) for r in rays)
+    t_out = np.full(len(ox), np.float32(1e30), np.float32)
+    i_out = np.full(len(ox), -1)
+    work = {"sc_slab": 0, "cl_slab": 0, "tri": 0}
+    for p in np.nonzero(active > 0.5)[0]:
+        o = np.array([ox[p], oy[p], oz[p]], np.float32)
+        d = np.array([dx[p], dy[p], dz[p]], np.float32)
+        with np.errstate(divide="ignore"):
+            inv = np.float32(1.0) / d
+        octant = int(d[0] > 0) + 2 * int(d[1] > 0) + 4 * int(d[2] > 0)
+        best, best_i = np.float32(1e30), -1
+
+        def slab(box):
+            with np.errstate(invalid="ignore"):
+                t0, t1 = (box[0:3] - o) * inv, (box[3:6] - o) * inv
+            lo, hi = np.minimum(t0, t1), np.maximum(t0, t1)  # NaN propagates
+            tmin = np.maximum(np.maximum(lo[0], lo[1]), np.maximum(lo[2], np.float32(0.0)))
+            tmax = np.minimum(np.minimum(hi[0], hi[1]), hi[2])
+            return bool(tmax >= tmin) and bool(tmin < best)
+
+        for s in range(s_count):
+            work["sc_slab"] += 1
+            if not slab(sc[octant * s_count + s]):
+                continue
+            for k in range(16):
+                box = cl[(octant * s_count + s) * 16 + k]
+                work["cl_slab"] += 1
+                if not slab(box):
+                    continue
+                work["tri"] += cs
+                rows = tri[int(box[6]): int(box[6]) + cs]
+                bt, bj = brute_force_mt(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9],
+                                        [v[None] for v in (*o, *d)])
+                if bj[0] >= 0 and bt[0] < best:
+                    best, best_i = bt[0], int(rows[bj[0], 13])
+        t_out[p], i_out[p] = best, best_i
+    return t_out, i_out, work
 
 
 def _small(rotated=False):
@@ -385,3 +545,122 @@ def test_cuda_adaptive_renderer_runs_the_tile_kernel(cuda):
     assert r.avg_spp >= 8.0 and r.spp_map().min() >= 4
     img = r.linear_image()
     assert img.shape == (128, 128, 3) and np.isfinite(img).all() and img.mean() > 0
+
+
+# ── the mesh kernels K7/K8 and the mesh pipeline ──
+
+_MESH = os.path.join(_SCENES, "mesh1080p.txt")
+
+
+def _soup_intersector(device, bvh):
+    v0, e1, e2, mat = triangle_soup(5)
+    if not bvh:
+        return tmesh.ClusterMeshIntersector(v0, e1, e2, mat, device=device)
+    desc = tri_scene_desc()
+    desc.tri_vertices = np.stack([v0, v0 + e1, v0 + e2], axis=1)
+    desc.tri_material_id = mat
+    return make_mesh_intersector(Scene.from_desc(desc, device))
+
+
+def assert_mesh_kernel_matches_plain(isect, rays, max_tie_share=0.0):
+    """K7 and K8 against the plain version on the same card: the same t on
+    every active ray, and every other output equal except on tie rays (two
+    triangles at exactly the same distance, kept in another visit order), of
+    which at most ``max_tie_share`` of the active rays; misses on the
+    inactive ones. Returns the number of active rays that hit."""
+    a = rays[6] > 0.5
+    got, want = isect.call_soa(*rays), isect.plain().call_soa(*rays)
+    assert torch.equal(got[0][a], want[0][a])
+    same = a & (got[1] == want[1])
+    assert int((a & ~same).sum()) <= max_tie_share * int(a.sum())
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g[same], w[same])
+    assert bool((got[0][~a] == tmesh._MISS).all()) and bool((got[1][~a] == -1).all())
+    t = isect.call_t(*rays)
+    assert torch.equal(t[a], isect.plain().call_t(*rays)[a]) and torch.equal(t[a], got[0][a])
+    return int((got[1][a] >= 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bvh", [False, True], ids=["consecutive", "treelets"])
+def test_cuda_mesh_kernels_match_plain_version(bvh, cuda):
+    isect = _soup_intersector(cuda, bvh)
+    rays = [torch.tensor(np.ascontiguousarray(r), device=cuda) for r in soup_rays(9, n=65536)]
+    launches = dict(tmesh.KERNEL.launches_by_mode)
+    assert assert_mesh_kernel_matches_plain(isect, rays) > 1000
+    assert tmesh.KERNEL.launches_by_mode["full"] == launches.get("full", 0) + 1
+    assert tmesh.KERNEL.launches_by_mode["tmin"] == launches.get("tmin", 0) + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bvh", [False, True], ids=["consecutive", "treelets"])
+def test_cuda_mesh_kernel_counts_its_own_work(bvh, cuda):
+    """The counting build adds up the kernel's own walk (the octant_walk
+    emulation's counts, exactly) and returns what the production build
+    returns."""
+    isect = _soup_intersector(cuda, bvh)
+    rays = [torch.tensor(np.ascontiguousarray(r), device=cuda) for r in soup_rays(9, n=2048)]
+    want = octant_walk(isect.tables, [r.cpu().numpy() for r in rays])[2]
+    assert tmesh.kernel_work(isect.tables, *rays) == want
+    assert tmesh.kernel_work(isect.tables, *rays, full=False) == want
+    work = torch.zeros(3, dtype=torch.int64, device=cuda)
+    counted = tmesh.COUNTING(isect.tables, *rays, full=True, work=work)
+    for c, p in zip(counted, tmesh.KERNEL(isect.tables, *rays, full=True)):
+        assert torch.equal(c, p)
+    assert work.tolist() == [want["sc_slab"], want["cl_slab"], want["tri"]]
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_inactive_rays_miss(cuda):
+    isect = _soup_intersector(cuda, False)
+    rays = [torch.tensor(np.ascontiguousarray(r), device=cuda) for r in soup_rays(9, n=4096)]
+    rays[6] = torch.zeros_like(rays[6])
+    t, i, nx, ny, nz, m = isect.call_soa(*rays)
+    assert bool((t == tmesh._MISS).all()) and bool((i == -1).all())
+    assert not bool(torch.cat([nx, ny, nz, m]).any())
+    assert bool((isect.call_t(*rays) == tmesh._MISS).all())
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_nan_slab_ray(cuda):
+    """An axis-parallel ray whose origin lies on a cluster box's plane: its
+    slab is NaN in the kernel too, which culls the box as the plain version
+    does (and as jnp.minimum/maximum do in the TPU kernel)."""
+    isect = _soup_intersector(cuda, False)
+    box = isect.tables.aabbs[0]
+    vals = [box[0] - 1.0, float(box[1]), 0.5 * (box[2] + box[5]), 1.0, 0.0, 0.0, 1.0]
+    rays = [torch.tensor([v], dtype=torch.float32, device=cuda) for v in vals]
+    assert assert_mesh_kernel_matches_plain(isect, rays) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_kernels_on_mesh1080p_primary_rays(cuda):
+    """K7/K8 on the real primary rays (block order) of mesh1080p: one of the
+    2,073,600 rays is a tie on the H100 (chip_smoke.py's bound, 1e-4 of the
+    rays, allows it)."""
+    r = Renderer(_MESH, RenderConfig(sky_strength=1.0), device=cuda)
+    isect = r._step.cluster
+    rec = tmesh.RayRecorder(isect)
+    fast.trace_sample_mesh(r.scene, RenderConfig(sky_strength=1.0, trace_depth=1), 0, 1, rec)
+    rays = rec.soa[0]
+    assert rays[0].shape == (1920 * 1080,)
+    assert assert_mesh_kernel_matches_plain(isect, rays, max_tie_share=1e-4) > 1920 * 1080 // 2
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_renderer_sort_on_and_off(cuda):
+    """Renderer on mesh1080p (at 480×270): 8 K7 launches a sample, sorted and
+    unsorted wavefronts give the same image (the JAX test's bound)."""
+    text = open(_MESH).read().replace("RES         1920 1080", "RES         480 270")
+    images = []
+    for sort in (True, False):
+        r = Renderer(parse_scene(text, base_dir=_SCENES),
+                     RenderConfig(sky_strength=1.0, mesh_ray_sort=sort, samples_per_launch=2),
+                     device=cuda)
+        assert r.pipeline == "fast_mesh"
+        tmesh.KERNEL.reset_counts()
+        r.render(2)
+        assert tmesh.KERNEL.launches_by_mode == {"full": 16}
+        images.append(r.linear_image())
+    assert images[0].shape == (270, 480, 3) and images[0].mean() > 0
+    np.testing.assert_allclose(images[0], images[1], rtol=1e-6, atol=1e-7)

@@ -163,12 +163,29 @@ def test_cuda_device_is_explicit():
 @pytest.mark.parametrize(
     "overrides",
     [dict(pipeline="fast"), dict(pipeline="reference"), dict(intersector="bvh"),
-     dict(mesh_sort_cells=4)],
+     dict(bvh_leaf_size=8)],
     ids=lambda d: next(iter(d)),
 )
 def test_unported_options_raise(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _renderer(**overrides)
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [dict(mesh_sort_cells=4), dict(mesh_ray_sort=False), dict(mesh_sort_every=2),
+     dict(mesh_sort_fused=False)],
+    ids=lambda d: next(iter(d)),
+)
+def test_mesh_fields_are_accepted(overrides):
+    """The mesh pipeline's fields are accepted on analytic scenes, where (as
+    in JAX) they change nothing: the megakernel never reads them."""
+    r = _renderer(trace_depth=1, **overrides)
+    assert r.pipeline == "pallas"
+    r.render(1)
+    base = _renderer(trace_depth=1)
+    base.render(1)
+    assert torch.equal(r.state.accum, base.state.accum)
 
 
 def test_config_fields_and_defaults_match_jax():

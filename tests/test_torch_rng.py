@@ -177,3 +177,63 @@ def test_threefry_bits_and_block(seed, draws):
     want = np.asarray(threefry_2x32(jkey, jnp.asarray(np.concatenate([x0, x1]))))
     y0, y1 = trng.threefry2x32(tkey, _t(x0), _t(x1))
     _eq(torch.cat([y0, y1]), want)
+
+
+# ── the mesh pipeline's pixel-keyed streams (bit-exact) ──
+
+STREAM_SEEDS = [0, 7, 2**31 - 1]
+STREAM_ITERS = [1, 2, 777, 2**20 + 5]
+
+
+@pytest.mark.parametrize("seed", STREAM_SEEDS)
+def test_hash_seed(seed):
+    key = jax.random.PRNGKey(seed)
+    for it in STREAM_ITERS:
+        for depth in (0, 1, 7, 31):
+            _eq(trng._hash_seed(seed, it, depth), jrng._hash_seed(key, jnp.int32(it), jnp.int32(depth)))
+
+
+@pytest.mark.parametrize("seed", STREAM_SEEDS)
+@pytest.mark.parametrize("depth", [0, 3])
+def test_hash_bounce_and_nee_uniforms(draws, seed, depth):
+    key = jax.random.PRNGKey(seed)
+    pix = draws["pix"]
+    for it in STREAM_ITERS:
+        _eq(trng.hash_bounce_uniforms(seed, it, depth, _t(pix)),
+            jrng.hash_bounce_uniforms(key, jnp.int32(it), jnp.int32(depth), jnp.asarray(pix)))
+        _eq(trng.hash_nee_uniforms(seed, it, depth, _t(pix)),
+            jrng.hash_nee_uniforms(key, jnp.int32(it), jnp.int32(depth), jnp.asarray(pix)))
+
+
+@pytest.mark.parametrize("seed", STREAM_SEEDS)
+def test_pixel_jitter_and_lens_uniforms(seed):
+    key = jax.random.PRNGKey(seed)
+    for it in STREAM_ITERS[:3]:
+        _eq(trng.pixel_jitter(seed, it, 1000), jrng.pixel_jitter(key, jnp.int32(it), 1000))
+        _eq(trng.lens_uniforms(seed, it, 1000), jrng.lens_uniforms(key, jnp.int32(it), 1000))
+
+
+@pytest.mark.parametrize("seed", STREAM_SEEDS)
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_ld_lane_wrappers(draws, seed, depth):
+    """The LD wrappers of sampler='sobol', including the per-(pixel, depth)
+    shuffled index past depth 0."""
+    key = jax.random.PRNGKey(seed)
+    pix = draws["pix"]
+    for it in STREAM_ITERS:
+        jit_ = jnp.int32(it)
+        if depth == 0:
+            for tags in ((0, 1), (2, 3), (5, 6)):
+                for g, w in zip(trng.ld_uniform_pair(seed, it, _t(pix), *tags),
+                                jrng.ld_uniform_pair(key, jit_, jnp.asarray(pix), *tags)):
+                    _eq(g, w)
+            _eq(trng.ld_pixel_jitter(seed, it, _t(pix)),
+                jrng.ld_pixel_jitter(key, jit_, jnp.asarray(pix)))
+            _eq(trng.ld_lens_uniforms(seed, it, _t(pix)),
+                jrng.ld_lens_uniforms(key, jit_, jnp.asarray(pix)))
+        _eq(trng._ld_depth_index(seed, it, _t(pix), depth),
+            jrng._ld_depth_index(key, jit_, jnp.asarray(pix), depth))
+        _eq(trng.ld_bounce_uniforms(seed, it, _t(pix), depth),
+            jrng.ld_bounce_uniforms(key, jit_, jnp.asarray(pix), depth))
+        _eq(trng.ld_nee_bounce_uniforms(seed, it, _t(pix), depth),
+            jrng.ld_nee_bounce_uniforms(key, jit_, jnp.asarray(pix), depth))

@@ -153,10 +153,15 @@ def test_scene_from_jax_arrays_matches_from_desc():
 
 
 @pytest.mark.parametrize("name", ["mesh1080p.txt"])
-def test_unported_scene_features_raise(name):
+def test_mesh_scene_builds(name):
+    """A scene with ``mesh`` objects builds its triangles (the field-by-field
+    comparison with JAX is in test_torch_mesh_scene.py)."""
     desc = tparser.load_scene_desc(os.path.join(HERE, "..", "scenes", name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scene.from_desc(desc, "cpu")
+    scene = Scene.from_desc(desc, "cpu")
+    assert scene.num_triangles == desc.num_triangles > 0
+    tri = scene.triangles
+    assert tri.v0.shape == tri.e1.shape == tri.e2.shape == tri.normal.shape == (desc.num_triangles, 3)
+    assert tri.geom_index[0] == desc.num_geoms
 
 
 def test_golden_png_decodes_identically():
