@@ -61,11 +61,16 @@ Phases, in order; any failure raises and exits non-zero:
 16. the mesh kernels K7/K8 on scenes/mesh1080p.txt (1920×1080, depth 8,
    38,530 triangles): the set-up's times (BVH build, packing, upload), then
    the kernels against their plain version on the real rays of a 1-spp NEE
-   render (the primary rays, bounces 1 and 3, with dead rays inactive, and
-   bounce 1's shadow rays): shares of active rays whose t or index differ
-   (bound 1e-4 each), tie rays, normals and materials equal on every other
-   active ray, one launch's time (median of 20), the plain version's time
-   and work, and the bound from the kernel's own work (its counting build);
+   render (K7 on every bounce's rays, with dead rays inactive, K8 on every
+   bounce's shadow rays): shares of active rays whose t (bound 0) or index
+   (bound 1e-4) differ, tie rays, normals and materials equal on every
+   other active ray, one launch's time (median of 20), the plain version's
+   time and work, the kernel's own work and the warp iterations that ran it
+   (its counting build: the SIMT efficiency of each level of the walk; the
+   other walk must run the same tests), the bound from that work, and per
+   sample the sums over the launches. Each set runs in the walk the
+   pipeline asks for: the lane walk on primary rays, the warp walk on every
+   later bounce and on shadow rays;
 17. mesh leg: Renderer(mesh1080p, sky_strength=1.0), warm-up step, then
    render(64) (about 4 s on an H100): rays/s, ms/sample, K7 launches (8 a
    sample); kernel pipeline against plain pipeline at 1 spp (share of
@@ -74,7 +79,9 @@ Phases, in order; any failure raises and exits non-zero:
 18. mesh NEE leg: the same with nee=True (K7 and K8 launches, kernel
    against plain pipeline), and its channel means between the non-NEE
    depth-8 and depth-9 means, 1% slack each side;
-19. one JSON line describing each ported kernel, the card, the result line.
+19. one JSON line describing each ported kernel (K7's and K8's times and
+   bounds are the sums over one sample's launches, whose count
+   'launches_per_sample' gives), the card, the result line.
 
 Every leg sets the launch counts to 0 just before it and reads them just
 after; a leg whose kernel variant was never launched fails. Phases 1-15 are
@@ -344,17 +351,20 @@ def _mesh_phases(device, seed, scene_path):
           f"{bvh_s:.3f} s ({scene.num_triangles} triangles, leaf 8), then packing "
           f"({tables.num_clusters} clusters, {tables.num_super} superclusters) and upload "
           f"({tables.nbytes} bytes) {setup_s - bvh_s:.3f} s")
-    # the rays of a 1-spp NEE render, taken from the pipeline
+    # the rays of a 1-spp NEE render, taken from the pipeline: the nearest-hit
+    # rays of every bounce (K7; dead rays inactive) and every bounce's shadow
+    # rays (K8)
     cfg_nee = RenderConfig(sky_strength=1.0, nee=True)
     sampler = make_light_sampler(scene)
     rec = mesh.RayRecorder(isect)
     fast.trace_sample_mesh(scene, cfg_nee, seed, 1, rec, light_sampler=sampler)
-    sets = {"primary": (rec.soa[0], True), "bounce 1": (rec.soa[1], True),
-            "bounce 3": (rec.soa[3], True), "bounce 1 shadow": (rec.tmin[1], False)}
+    # each in the walk the pipeline asked for (K8: the warp walk)
+    sets = [(f"bounce {d}", rays, True, walk)
+            for d, (rays, walk) in enumerate(zip(rec.soa, rec.walks))]
+    sets += [(f"bounce {d} shadow", rays, False, "warp") for d, rays in enumerate(rec.tmin)]
     readings = {}
-    for what, (rays, full) in sets.items():
-        mesh.KERNEL.reset_counts()
-        got = mesh.KERNEL(tables, *rays, full=full)
+    for what, rays, full, walk in sets:
+        got = mesh.KERNEL(tables, *rays, full=full, walk=walk)
         work = {}
         t0 = time.perf_counter()
         want = mesh.intersect_reference(tables, *rays, full=full, stats=work)
@@ -374,29 +384,57 @@ def _mesh_phases(device, seed, scene_path):
             same = a & ~i_diff
             other = sum(int((same & (g != w)).sum()) for g, w in zip(got[2:], want[2:]))
         hits = int((a & (want[0] < mesh._MISS)).sum())
-        ms = _median_ms(lambda: mesh.KERNEL(tables, *rays, full=full))
+        ms = _median_ms(lambda: mesh.KERNEL(tables, *rays, full=full, walk=walk))
         n = rays[0].numel()
-        own = mesh.kernel_work(tables, *rays, full=full)
+        own = mesh.kernel_work(tables, *rays, full=full, walk=walk)
+        eff = mesh.simt_efficiency(own)
+        # the other walk must run the same tests
+        other_walk = "lane" if walk == "warp" else "warp"
+        other_work = mesh.kernel_work(tables, *rays, full=full, walk=other_walk)
+        same_tests = all(own[k] == other_work[k] for k in ("sc_slab", "cl_slab", "tri"))
         flops = (n_act * (FLOPS_MESH_RAY + (FLOPS_MESH_NORMALIZE if full else 0))
                  + (own["sc_slab"] + own["cl_slab"]) * FLOPS_SLAB
                  + own["tri"] * FLOPS_TRIANGLE)
         t_ops = flops / PEAK_F32_FLOPS * 1e3
-        t_bytes = (n * 7 * 4 + n * (24 if full else 4) + tables.nbytes) / PEAK_BYTES_PER_S * 1e3
+        # bytes: every slot's active flag and outputs, and an active ray's
+        # origin and direction. The tables are left out: which of their rows
+        # a launch must read is not counted, so the bound stays a floor
+        t_bytes = (n * 4 + n_act * 24 + n * (24 if full else 4)) / PEAK_BYTES_PER_S * 1e3
         bound = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-        readings[what] = dict(err=max_abs, ms=ms, plain_ms=plain_ms, bound=bound)
-        print(f"  {what} ({'K7' if full else 'K8'}): {n} rays, {n_act} active, {hits} hit; "
-              f"t differs on {share_t:.2e}, index on {share_i:.2e} of active rays (bound "
-              f"{MESH_RAY_SHARE} each), {ties} tie rays, max|dt| {max_abs:.3e}, {other} "
-              f"differing normal or material outputs on the other active rays; one launch "
+        readings[what] = dict(err=max_abs, ms=ms, plain_ms=plain_ms, bound=bound, full=full)
+        print(f"  {what} ({'K7' if full else 'K8'}, {walk} walk): {n} rays, {n_act} active, "
+              f"{hits} hit; t differs on {share_t:.2e}, index on {share_i:.2e} of active "
+              f"rays (bound {MESH_RAY_SHARE} each), {ties} tie rays, max|dt| {max_abs:.3e}, "
+              f"{other} differing normal or material outputs on the other active rays; one launch "
               f"{ms:.3f} ms (median of 20), plain version {plain_ms:.1f} ms; kernel work "
               f"{own['sc_slab']} supercluster + {own['cl_slab']} cluster slab + {own['tri']} "
-              f"triangle tests (plain version {work['slab']} slab + {work['tri']} triangle "
-              f"tests); bound {bound[0]:.4f} ms ({bound[1]})")
-        if share_t > MESH_RAY_SHARE or share_i > MESH_RAY_SHARE or other:
+              f"triangle tests in {own['sc_warp']} + {own['cl_warp']} + {own['tri_warp']} warp "
+              f"iterations, SIMT efficiency {eff['sc']:.4f} / {eff['cl']:.4f} / "
+              f"{eff['tri']:.4f} (plain version {work['slab']} slab + {work['tri']} triangle "
+              f"tests; the {other_walk} walk: the same tests {same_tests}, SIMT efficiency "
+              f"{mesh.simt_efficiency(other_work)['tri']:.4f} at the triangle level); bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        if share_t > 0.0 or share_i > MESH_RAY_SHARE or other:
             raise AssertionError(f"mesh kernel ({what}) disagrees with the plain version")
+        if not same_tests:
+            raise AssertionError(f"mesh kernel ({what}): its two walks ran other tests")
         if not bool(torch.isfinite(got[0]).all()):
             raise AssertionError(f"mesh kernel ({what}) output is not finite")
     del rec, sets
+    # per sample: the sum over its launches (one K7, and with NEE one K8, a
+    # bounce) of the times, the bounds and the plain version's times
+    per_sample = {}
+    for name, full in (("K7", True), ("K8", False)):
+        rd = [r for r in readings.values() if r["full"] == full]
+        by_ops = sum(r["bound"][0] for r in rd if r["bound"][1] == "operations")
+        bound = sum(r["bound"][0] for r in rd)
+        per_sample[name] = dict(
+            err=max(r["err"] for r in rd), ms=sum(r["ms"] for r in rd),
+            plain_ms=sum(r["plain_ms"] for r in rd), launches=len(rd),
+            bound=(bound, "operations" if 2 * by_ops >= bound else "bytes"))
+        ps = per_sample[name]
+        print(f"  {name} per sample: {ps['launches']} launches, {ps['ms']:.3f} ms against a bound "
+              f"of {bound:.4f} ms ({ps['bound'][1]}), plain version {ps['plain_ms']:.1f} ms")
 
     legs = {}
     for phase, name, cfg in (("[17]", "mesh", RenderConfig(sky_strength=1.0)),
@@ -449,7 +487,7 @@ def _mesh_phases(device, seed, scene_path):
           f"above depth 9 by {above:.4e} (slack {NEE_MEAN_RTOL} each)")
     if below > NEE_MEAN_RTOL or above > NEE_MEAN_RTOL:
         raise AssertionError("mesh NEE's channel means leave the depth-8..9 bracket")
-    return {"readings": readings, "k7_launches": legs["mesh"]["launches"]["full"],
+    return {"per_sample": per_sample, "k7_launches": legs["mesh"]["launches"]["full"],
             "k8_launches": legs["mesh NEE"]["launches"]["tmin"]}
 
 
@@ -1024,10 +1062,12 @@ def main() -> int:
     def mk_entry(name, line, launches, err, timing):
         return entry(name, f"{src}:{line}", launches, err, timing)
 
-    def mesh_entry(name, what, launches):
-        rd = meshes["readings"][what]
-        return entry(name, src.replace("megakernel.py", "mesh_kernel.py:541"), launches,
-                     rd["err"], (rd["ms"], rd["plain_ms"], rd["bound"]), source=mesh.SOURCE)
+    def mesh_entry(name, kernel, launches):
+        # ms, plain_ms and bound_ms: the sum over one sample's launches
+        ps = meshes["per_sample"][kernel]
+        return dict(entry(name, src.replace("megakernel.py", "mesh_kernel.py:541"), launches,
+                          ps["err"], (ps["ms"], ps["plain_ms"], ps["bound"]), source=mesh.SOURCE),
+                    launches_per_sample=ps["launches"])
 
     k1b_launches = sum(leg_launches["glass+dof"].values()) + sum(
         leg_launches["reference parity"].values())
@@ -1047,8 +1087,8 @@ def main() -> int:
                  env["times"]["split composite"]),
         mk_entry("K6 megakernel[tiles]", 2173, sum(ada_launches.values()) + env["adaptive_launches"],
                  max(errs["g"], env["errs"]["exact tiles"]), times["g"]),
-        mesh_entry("K7 mesh_intersect[full]", "bounce 1", meshes["k7_launches"]),
-        mesh_entry("K8 mesh_intersect[tmin]", "bounce 1 shadow", meshes["k8_launches"]),
+        mesh_entry("K7 mesh_intersect[full]", "K7", meshes["k7_launches"]),
+        mesh_entry("K8 mesh_intersect[tmin]", "K8", meshes["k8_launches"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

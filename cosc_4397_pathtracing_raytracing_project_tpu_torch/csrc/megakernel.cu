@@ -83,8 +83,10 @@
 
 #include <type_traits>
 
-#define PT_MAX_GEOMS 16
-#define PT_MAX_MATERIALS 16
+// the JAX megakernel's 1-64 analytic primitives; the host keeps only the
+// materials the geoms reference, so they never outnumber the geoms
+#define PT_MAX_GEOMS 64
+#define PT_MAX_MATERIALS PT_MAX_GEOMS
 #define PT_MAX_LIGHTS PT_MAX_GEOMS
 #define PT_GF 21  // floats per geom: inverse transform rows (12) + inverse-transpose (9)
 #define PT_MF 10  // floats per material: color(3) spec(3) refl refr emit ior
@@ -184,9 +186,9 @@ struct Options {
   float sky_strength;
 };
 
-// The largest parameter block (NEE + TILES, or NEE + split) passes 4 KB:
-// kernel parameters up to 32764 bytes need CUDA 12.1 or later and a Volta or
-// later card.
+// The parameter block passes 4 KB (about 9 KB of scene tables, 17 KB with
+// the 64-row light table): kernel parameters up to 32764 bytes need CUDA
+// 12.1 or later and a Volta or later card.
 static_assert(sizeof(Options) + sizeof(SceneTables) + sizeof(LightTable) + sizeof(TileArgs) +
                       sizeof(EnvSplit) + sizeof(float*) + 64 <=
                   32764,

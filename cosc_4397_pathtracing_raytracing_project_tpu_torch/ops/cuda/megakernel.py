@@ -79,9 +79,12 @@ _ORIGIN_OFFSET = 1e-3
 _GF = 21  # floats per geom: inverse transform rows (12) + inverse-transpose (9)
 _MF = 10  # floats per material: color(3) spec_color(3) refl refr emit ior
 _LF = 26  # floats per light row: A(9) translation(3) A^-T(9) |det A| Le(3) pdf
-# table capacity of csrc/megakernel.cu's by-value scene parameter
-MAX_GEOMS = 16
-MAX_MATERIALS = 16
+# table capacity of csrc/megakernel.cu's by-value scene parameter: the JAX
+# package's MAX_UNROLL analytic primitives (its megakernel takes 1-64, and
+# routes other counts to its reference pipeline); pack_scene keeps only the
+# materials the geoms reference, so they never outnumber the geoms
+MAX_GEOMS = 64
+MAX_MATERIALS = MAX_GEOMS
 MAX_LIGHTS = MAX_GEOMS
 # delta suns of env_mode='split' that travel by value (RenderConfig's
 # default env_split_suns is 8)
@@ -280,10 +283,14 @@ def static_light_table(scene) -> Optional[LightTable]:
 def pack_scene(scene, nee: bool = False, config=None) -> PackedScene:
     """Read the scene's tables to the host once (the layout of the JAX
     ``_pack_scene`` plus the camera vector of ``_render_samples_impl``).
-    With ``nee``, also the light table; a scene without analytic emitters
-    then raises ``ValueError``, as the JAX ``render_samples`` does. With a
-    ``config`` and a scene with an environment map, also the map's tables
-    for ``config.env_mode`` (:func:`pack_env`)."""
+    Only the materials that some geom references are kept, renumbered
+    densely in id order (the geoms' and lights' ids follow), so a file with
+    any number of materials fits the kernel's table; where every material
+    is referenced, the tables are the JAX ones. With ``nee``, also the
+    light table; a scene without analytic emitters then raises
+    ``ValueError``, as the JAX ``render_samples`` does. With a ``config``
+    and a scene with an environment map, also the map's tables for
+    ``config.env_mode`` (:func:`pack_env`)."""
 
     def pack_batch(b):
         if b.count == 0:
@@ -314,6 +321,10 @@ def pack_scene(scene, nee: bool = False, config=None) -> PackedScene:
             f"geometry material ids {gmat.tolist()} must name one of the "
             f"{num_materials} materials"
         )
+    used = np.unique(gmat)
+    dense = np.full(num_materials, -1, np.int32)
+    dense[used] = np.arange(used.size, dtype=np.int32)
+    gmat, mats = dense[gmat], mats[used]
     lights = None
     if nee:
         lights = static_light_table(scene)
@@ -321,6 +332,7 @@ def pack_scene(scene, nee: bool = False, config=None) -> PackedScene:
             raise ValueError(
                 "nee: scene has no analytic (cube/sphere) emissive lights"
             )
+        lights = dataclasses.replace(lights, mat=dense[lights.mat])
     cam = scene.camera
     cam_vec = np.concatenate(
         [
@@ -430,10 +442,11 @@ class KernelOptions:
 
 def supports(scene) -> bool:
     """Whether the megakernel renders ``scene`` (the JAX ``supports``):
-    analytic scenes (triangles take the mesh pipeline), with environment
-    maps up to ``MAX_ENV_EXACT_TEXELS`` texels. Larger maps belong to the
-    fast pipeline (ROADMAP Queue 1 item 10)."""
-    if scene.num_triangles:
+    analytic scenes of 1 to ``MAX_GEOMS`` primitives (triangles take the
+    mesh pipeline, other counts the reference pipeline, ROADMAP Queue 1
+    item 9), with environment maps up to ``MAX_ENV_EXACT_TEXELS`` texels.
+    Larger maps belong to the fast pipeline (item 10)."""
+    if scene.num_triangles or not 0 < scene.cubes.count + scene.spheres.count <= MAX_GEOMS:
         return False
     if scene.envmap is not None:
         h, w = scene.envmap.shape

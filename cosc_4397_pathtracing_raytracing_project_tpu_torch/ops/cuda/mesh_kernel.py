@@ -54,6 +54,13 @@ _OCTANT_SIGNS = np.array(
 
 SOURCE = "cosc_4397_pathtracing_raytracing_project_tpu_torch/csrc/mesh_kernel.cu"
 
+# The kernel's two walks (csrc/mesh_kernel.cu states why): in the lane walk
+# lane l of a warp walks ray l alone; in the warp walk each warp serves live
+# rays one at a time with all its lanes. Measured on mesh1080p's rays
+# (PERF.md, Findings), the lane walk wins only on primary rays, all live and
+# coherent, so the mesh pipeline takes it there and the warp walk elsewhere.
+WALKS = ("lane", "warp")
+
 # Rays per batch of the plain version's per-cluster triangle test (bounds the
 # memory of its [rays, cluster_size] temporaries).
 _REFERENCE_RAYS = 1 << 18
@@ -380,26 +387,29 @@ class MeshKernel:
             fn = lib.pt_mesh_intersect_launch
             fn.restype = ctypes.c_int
             i, p = ctypes.c_int, ctypes.c_void_p
-            fn.argtypes = [i, p, p, p, i, i, i] + [p] * 7 + [p] * 6 + [p, p]
+            fn.argtypes = [i, p, p, p, i, i, i] + [p] * 7 + [p] * 6 + [i, p, p]
             self._lib = lib
         return self._lib.pt_mesh_intersect_launch
 
     def __call__(self, tables: MeshTables, ox, oy, oz, dx, dy, dz, active,
-                 full: bool = True, work: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, ...]:
-        """Launch K7 (``full``) or K8 over the [N] rays; ``active`` is [N]
+                 full: bool = True, work: Optional[torch.Tensor] = None,
+                 walk: str = "warp") -> Tuple[torch.Tensor, ...]:
+        """Launch K7 (``full``) or K8 over the [N] rays in ``walk`` (one of
+        :data:`WALKS`; the results are the same in both); ``active`` is [N]
         f32 (active where > 0.5). Every tensor lies on the tables' CUDA
         device; rays and ``active`` are contiguous f32. A counting build
-        takes ``work``, three int64 counters it adds to; any other build
-        none."""
+        takes ``work``, ``len(WORK)`` int64 counters it adds to; any other
+        build none."""
+        if walk not in WALKS:
+            raise ValueError(f"walk must be one of {WALKS}, got {walk!r}")
         if (work is not None) != self.counts:
             raise ValueError("work counters go with a -DPT_MESH_COUNT build, and only there")
         device = tables.device
         if device.type != "cuda":
             raise ValueError(f"the CUDA mesh kernel needs a CUDA device, got {device}")
         if work is not None and (work.device != device or work.dtype != torch.int64
-                                 or work.shape != (3,) or not work.is_contiguous()):
-            raise ValueError(f"work must be a contiguous int64 [3] tensor on {device}")
+                                 or work.shape != (len(WORK),) or not work.is_contiguous()):
+            raise ValueError(f"work must be a contiguous int64 [{len(WORK)}] tensor on {device}")
         n = ox.shape[0]
         for t in (ox, oy, oz, dx, dy, dz, active):
             if (t.device != device or t.dtype != torch.float32 or not t.is_contiguous()
@@ -426,7 +436,7 @@ class MeshKernel:
                 int(full), tables.tri_rows.data_ptr(), tables.sc_rows.data_ptr(),
                 tables.cl_rows.data_ptr(), tables.num_super, tables.cluster_size, n,
                 *(t.data_ptr() for t in (ox, oy, oz, dx, dy, dz, active)),
-                *ptrs, None if work is None else work.data_ptr(), stream,
+                *ptrs, int(walk == "warp"), None if work is None else work.data_ptr(), stream,
             )
         if err != 0:
             raise RuntimeError(f"mesh kernel launch failed: CUDA error {err}")
@@ -438,17 +448,35 @@ KERNEL = MeshKernel()
 COUNTING = MeshKernel(NVCC_FLAGS + ("-DPT_MESH_COUNT",))
 
 
-def kernel_work(tables: MeshTables, ox, oy, oz, dx, dy, dz, active,
-                full: bool = True) -> dict:
+# the counting build's counters: the tests each level of the walk ran (lanes),
+# then the loop iterations warps executed for them
+WORK = ("sc_slab", "cl_slab", "tri", "sc_warp", "cl_warp", "tri_warp")
+
+
+def kernel_work(tables: MeshTables, ox, oy, oz, dx, dy, dz, active, full: bool = True,
+                walk: str = "warp") -> dict:
     """The work the kernel does on these rays, counted by its counting
-    build (:data:`COUNTING`) in one launch: supercluster slab tests
-    ('sc_slab', every supercluster of the ray's octant), cluster slab tests
-    ('cl_slab', the 16 clusters of each supercluster the ray enters) and
-    triangle tests ('tri', the rows of each cluster it enters), summed over
-    the active rays."""
-    work = torch.zeros(3, dtype=torch.int64, device=tables.device)
-    COUNTING(tables, ox, oy, oz, dx, dy, dz, active, full=full, work=work)
-    return dict(zip(("sc_slab", "cl_slab", "tri"), (int(v) for v in work.tolist())))
+    build (:data:`COUNTING`) in one launch in ``walk``: supercluster slab
+    tests ('sc_slab', every supercluster of the ray's octant), cluster slab
+    tests ('cl_slab', the 16 clusters of each supercluster the ray enters)
+    and triangle tests ('tri', the rows of each cluster it enters), summed
+    over the active rays, the same in both walks; and for each level the
+    iterations that warps executed to run those tests ('sc_warp',
+    'cl_warp', 'tri_warp'). A level's SIMT efficiency is its tests over 32
+    × its warp iterations (:func:`simt_efficiency`)."""
+    work = torch.zeros(len(WORK), dtype=torch.int64, device=tables.device)
+    COUNTING(tables, ox, oy, oz, dx, dy, dz, active, full=full, work=work, walk=walk)
+    return dict(zip(WORK, (int(v) for v in work.tolist())))
+
+
+def simt_efficiency(work: dict) -> dict:
+    """Per level ('sc', 'cl', 'tri'): the share of the lanes of the executed
+    warp iterations that ran a test (1.0 when no iteration ran)."""
+    eff = {}
+    for level, lanes in (("sc", "sc_slab"), ("cl", "cl_slab"), ("tri", "tri")):
+        warps = work[f"{level}_warp"]
+        eff[level] = work[lanes] / (32 * warps) if warps else 1.0
+    return eff
 
 
 class ClusterMeshIntersector:
@@ -515,24 +543,27 @@ class ClusterMeshIntersector:
         twin.tables, twin.reference = self.tables, True
         return twin
 
-    def _run(self, full, ox, oy, oz, dx, dy, dz, active):
+    def _run(self, full, ox, oy, oz, dx, dy, dz, active, walk="warp"):
         if active is None:
             active = torch.ones_like(ox)
         if self.reference or ox.device.type == "cpu":
             return intersect_reference(self.tables, ox, oy, oz, dx, dy, dz, active, full)
         if ox.device.type == "cuda":
             rays = [t.to(torch.float32).contiguous() for t in (ox, oy, oz, dx, dy, dz, active)]
-            return KERNEL(self.tables, *rays, full=full)
+            return KERNEL(self.tables, *rays, full=full, walk=walk)
         raise ValueError(f"unsupported device {ox.device}")
 
-    def call_soa(self, ox, oy, oz, dx, dy, dz, active=None):
+    def call_soa(self, ox, oy, oz, dx, dy, dz, active=None, walk="warp"):
         """(t, idx, nx, ny, nz, mat_f32) [N] tensors; idx = -1 on a miss.
         ``active`` ([N] bool or f32) marks the rays to trace; the others
-        are misses."""
-        return self._run(True, ox, oy, oz, dx, dy, dz, active)
+        are misses. ``walk`` is the kernel's (:data:`WALKS`): 'lane' for
+        coherent rays that are all live, such as primary rays; the results
+        are the same in both."""
+        return self._run(True, ox, oy, oz, dx, dy, dz, active, walk)
 
     def call_t(self, ox, oy, oz, dx, dy, dz, active=None) -> torch.Tensor:
-        """Nearest-hit distance only (``_MISS`` when nothing is hit)."""
+        """Nearest-hit distance only (``_MISS`` when nothing is hit), in the
+        kernel's warp walk."""
         return self._run(False, ox, oy, oz, dx, dy, dz, active)[0]
 
     def __call__(self, origins, directions) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -546,12 +577,13 @@ class ClusterMeshIntersector:
 class RayRecorder:
     """An intersector that keeps a copy of every ray set the mesh pipeline
     hands it (the six ray components and the active mask, as contiguous f32
-    [N] tensors: the kernel's inputs) in ``soa`` (nearest-hit calls) and
-    ``tmin`` (shadow rays), and passes each call on to ``inner``. It is how
+    [N] tensors: the kernel's inputs) in ``soa`` (nearest-hit calls, with
+    the walk each asked for in ``walks``) and ``tmin`` (shadow rays), and
+    passes each call on to ``inner``. It is how
     the kernels are measured on the rays a render really traces."""
 
     def __init__(self, inner: ClusterMeshIntersector):
-        self.inner, self.soa, self.tmin = inner, [], []
+        self.inner, self.soa, self.walks, self.tmin = inner, [], [], []
         self.tables = inner.tables
 
     @staticmethod
@@ -560,9 +592,10 @@ class RayRecorder:
             active = torch.ones_like(rays[0])
         return [r.to(torch.float32).contiguous().clone() for r in (*rays, active)]
 
-    def call_soa(self, *rays, active=None):
+    def call_soa(self, *rays, active=None, walk="warp"):
         self.soa.append(self._copy(rays, active))
-        return self.inner.call_soa(*rays, active=active)
+        self.walks.append(walk)
+        return self.inner.call_soa(*rays, active=active, walk=walk)
 
     def call_t(self, *rays, active=None):
         self.tmin.append(self._copy(rays, active))

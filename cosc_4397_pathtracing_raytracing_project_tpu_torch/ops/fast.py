@@ -253,7 +253,10 @@ def shade_soa(carry, best: _Best, u, materials, depth, config, nee=None, env=Non
     """One masked shade/extend pass over the SoA wavefront state (the JAX
     ``shade_soa``). ``carry`` is the 13-tuple state (14 with ``nee``: a
     trailing prev_pdf); ``u`` is [NUM_LANES, N]; ``nee`` is
-    ``(light_sampler, shadow_t_fn, uniforms [N, 3])``. The environment
+    ``(light_sampler, shadow_t_fn, uniforms [N, 3])``, where
+    ``shadow_t_fn(ox, oy, oz, dx, dy, dz, active)`` gives the shadow rays'
+    nearest distance wherever ``active`` holds (the rays whose light sample
+    can count). The environment
     branches (``env``, ``env_nee``) belong to the fast pipeline, ROADMAP
     Queue 1 item 10: mesh scenes carry no environment."""
     if env is not None or env_nee is not None:
@@ -428,9 +431,12 @@ def shade_soa(carry, best: _Best, u, materials, depth, config, nee=None, env=Non
         wx, wy, wz = tox * rdist, toy * rdist, toz * rdist
         cos_s = nx * wx + ny * wy + nz * wz
         cos_l2 = -(ln[:, 0] * wx + ln[:, 1] * wy + ln[:, 2] * wz)
-        sh_t = shadow_t(hx, hy, hz, wx, wy, wz)
+        # only the shadow rays whose sample can count are traced (the JAX
+        # package traces every live ray's; the others' t is never read)
+        facing = base & (cos_s > 0.0) & (cos_l2 > 0.0) & (dist > 1e-4)
+        sh_t = shadow_t(hx, hy, hz, wx, wy, wz, facing)
         visible = sh_t >= dist - torch.clamp_min(1e-3 * dist, 1e-3)
-        add = base & (cos_s > 0.0) & (cos_l2 > 0.0) & (dist > 1e-4) & visible
+        add = facing & visible
         p_brdf_area = (
             diffuse_prob * torch.clamp_min(cos_s, 0.0) * _INV_PI
             * torch.clamp_min(cos_l2, 0.0) / torch.clamp_min(d2, 1e-12)
@@ -616,8 +622,9 @@ def trace_sample_mesh(scene, config, seed: int, iteration: int, cluster_isect,
         perm = torch.sort(key, stable=True).indices
         return tuple(c[perm] for c in carry), pixel[perm]
 
-    def intersect_combined(ox, oy, oz, dx, dy, dz, alive) -> _Best:
-        t, ti, nx, ny, nz, mat_f = cluster_isect.call_soa(ox, oy, oz, dx, dy, dz, active=alive)
+    def intersect_combined(ox, oy, oz, dx, dy, dz, alive, walk) -> _Best:
+        t, ti, nx, ny, nz, mat_f = cluster_isect.call_soa(ox, oy, oz, dx, dy, dz, active=alive,
+                                                          walk=walk)
         tri_hit = ti >= 0
         best = _Best(
             t=torch.where(tri_hit, t, _MISS),
@@ -658,11 +665,14 @@ def trace_sample_mesh(scene, config, seed: int, iteration: int, cluster_isect,
         # nothing; legacy mode keeps every ray active (its sky multiply
         # touches dead rays) and never sorts
         alive = bounces > 0 if not legacy else torch.ones((n,), dtype=torch.bool, device=dev)
-        best = intersect_combined(ox, oy, oz, dx, dy, dz, alive)
+        # the kernel's lane walk for the primary rays, all live and coherent;
+        # its warp walk for the later bounces' scattered and thinning rays
+        best = intersect_combined(ox, oy, oz, dx, dy, dz, alive,
+                                  "lane" if depth == 0 else "warp")
         nee = None
         if use_nee:
-            def shadow_t(sx, sy, sz, wx, wy, wz):
-                st = cluster_isect.call_t(sx, sy, sz, wx, wy, wz, active=alive)
+            def shadow_t(sx, sy, sz, wx, wy, wz, active):
+                st = cluster_isect.call_t(sx, sy, sz, wx, wy, wz, active=active)
                 if has_analytic:
                     st = torch.minimum(st, intersect_unrolled(scene, sx, sy, sz, wx, wy, wz).t)
                 return st

@@ -217,7 +217,6 @@ class AdaptiveRenderer:
         # an environment renders in exact mode without nee (the JAX
         # render_tiles' limits, checked here before any launch)
         megakernel.check_tiles_env(self.scene, config)
-        config.resolve_pipeline(self.scene)
         self.config = config
         self._packed = megakernel.pack_scene(
             self.scene, nee=megakernel.kernel_options(config, self.scene).nee, config=config

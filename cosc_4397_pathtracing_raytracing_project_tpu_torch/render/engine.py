@@ -63,7 +63,8 @@ class RenderConfig:
     def resolve_pipeline(self, scene: Scene) -> str:
         """The pipeline the JAX package picks on its accelerator
         (`engine.py:147-213`): ``"pallas"`` (the megakernel) for analytic
-        scenes, and for scenes with an environment map in ``'split'`` mode,
+        scenes of 1 to ``megakernel.MAX_GEOMS`` (64) primitives, and for
+        scenes with an environment map in ``'split'`` mode,
         or in ``'exact'`` mode when the map fits ``MAX_ENV_EXACT_TEXELS``
         with ``light_only`` gathering and, under ``nee``, no analytic
         emitter; ``"fast_mesh"`` for scenes with triangles (``supports_mesh``),
@@ -110,6 +111,13 @@ class RenderConfig:
             return "fast_mesh"
         if self.pipeline == "fast_mesh":
             raise ValueError("pipeline='fast_mesh' needs a scene with triangles")
+        count = scene.cubes.count + scene.spheres.count
+        if not 0 < count <= megakernel.MAX_GEOMS:
+            raise NotImplementedError(
+                f"an analytic scene of {count} primitives (the megakernel takes 1-"
+                f"{megakernel.MAX_GEOMS}) runs on pipeline='reference', which is not "
+                "ported yet (ROADMAP Queue 1 item 9)"
+            )
         if scene.envmap is not None and self.env_mode == "exact":
             in_kernel = self.gather_mode == "light_only" and megakernel.supports(scene)
             if in_kernel and self.nee:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Measure the PyTorch/CUDA port's kernels on one CUDA card.
 
-    python3 scripts/torch_measure.py [--out build/torch_measure.json] [--legs megakernel,mesh]
+    python3 scripts/torch_measure.py [--out build/torch_measure.json]
+        [--legs megakernel,mesh,mesh-kernels,mesh-host]
 
 The megakernel legs (``--legs megakernel``), all at 800×800 on
 scenes/cornell.txt, depth 8, seed 0; times from CUDA events, each kernel row
@@ -55,7 +56,29 @@ sky_strength 1.0, without and with NEE:
   depth 8 (the NEE depth bracket of chip_smoke.py at three times its
   samples).
 
-Both end with the card's name, power limit, SM clock and temperature.
+The mesh-kernel leg (``--legs mesh-kernels``, not in the default): K7 on the
+rays of every bounce of a 1-spp NEE render of scenes/mesh1080p.txt (seed 0),
+K8 on every bounce's shadow rays, and K8 on the same shadow rays with every
+live ray of the bounce active (the mask the JAX package passes), each in
+each of the kernel's walks (mesh_kernel.WALKS; a package without them has
+one schedule) and, in the walk the pipeline takes, built without its launch
+bounds (-DPT_MESH_BOUNDS=, with both builds' ptxas register and spill
+lines): the active rays, the median of 20 timed launches after one warm-up,
+and the counting build's work and SIMT efficiency; then per schedule, and
+for the pipeline's walks, the sums over one sample's launches. Run with
+another checkout's package (the script copied into that checkout's
+scripts/), it times that checkout's kernel on the same rays.
+
+The mesh host leg (``--legs mesh-host``, not in the default), for the mesh
+cell without NEE, whose wall the host sets: 5 laps of Renderer.render(4)
+after a warm-up sample (ms/sample of each), twice; then the host's
+microseconds per launch, each the mean over 200
+launches enqueued back to back, of K7 on the last bounce's rays and of a
+one-element torch add, once with the card idle and once queued behind a
+50 ms spin kernel (torch.cuda._sleep), so that no launch waits for the
+card. Run in two checkouts by turns, it compares their host costs.
+
+Each leg ends with the card's name, power limit, SM clock and temperature.
 Prints the readings as one JSON object and writes it to --out.
 """
 
@@ -211,6 +234,120 @@ def measure_mesh(device, out):
     out["mesh_means_96spp"] = means
 
 
+# the same source without its launch bounds (ptxas may take more registers)
+NO_BOUNDS = mesh.MeshKernel(build.NVCC_FLAGS + ("-DPT_MESH_BOUNDS=",))
+
+
+def ptxas_lines(kernel):
+    """nvcc's register and spill lines for ``kernel``'s build."""
+    kernel._fn()
+    text = build.log_path(kernel.name, kernel.flags).read_text()
+    return [line.strip() for line in text.splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line]
+
+
+def measure_mesh_kernels(device, out):
+    path = os.path.join(REPO, "scenes", "mesh1080p.txt")
+    cfg = RenderConfig(sky_strength=1.0, nee=True)
+    r = Renderer(path, cfg, device=device)
+    tables = r._step.cluster.tables
+    rec = mesh.RayRecorder(r._step.cluster)
+    fast.trace_sample_mesh(r.scene, cfg, SEED, 1, rec, light_sampler=make_light_sampler(r.scene))
+    walks = getattr(rec, "walks", [None] * len(rec.soa))
+    # (kernel, bounce, rays, the walk the pipeline takes for them)
+    sets = [("K7", d, rays, w) for d, (rays, w) in enumerate(zip(rec.soa, walks))]
+    sets += [("K8", d, rays, "warp") for d, rays in enumerate(rec.tmin)]
+    sets += [("K8 live", d, rays[:6] + [rec.soa[d][6]], "warp")
+             for d, rays in enumerate(rec.tmin)]
+    # each walk, and the pipeline's without the launch bounds; a package
+    # without walks has one schedule
+    has_walks = hasattr(mesh, "WALKS")
+    schedules = ["lane", "warp", "no bounds"] if has_walks else ["default"]
+    if has_walks:
+        out["mesh_ptxas"] = {"bounds": ptxas_lines(mesh.KERNEL),
+                             "no bounds": ptxas_lines(NO_BOUNDS)}
+        print(json.dumps(out["mesh_ptxas"], indent=1), flush=True)
+    rows = []
+    for kernel, depth, rays, shipped in sets:
+        full = kernel == "K7"
+        for name in schedules:
+            launch, kw = mesh.KERNEL, {}
+            if name == "no bounds":
+                launch, kw = NO_BOUNDS, dict(walk=shipped)
+            elif has_walks:
+                kw = dict(walk=name)
+            ms = time_launches(lambda: launch(tables, *rays, full=full, **kw), REPS)
+            work = mesh.kernel_work(tables, *rays, full=full, **kw)
+            eff = mesh.simt_efficiency(work) if hasattr(mesh, "simt_efficiency") else None
+            rows.append(dict(kernel=kernel, bounce=depth, schedule=name, shipped=name == shipped,
+                             active=int((rays[6] > 0.5).sum()), ms=ms["median"],
+                             work=work, simt=eff))
+            print(f"{kernel} bounce {depth} {name}: {rows[-1]['active']} active, "
+                  f"{ms['median']:.4f} ms, SIMT {eff}", flush=True)
+    out["mesh_kernels"] = rows
+    sums = {}
+    for kernel in ("K7", "K8", "K8 live"):
+        mine = [x for x in rows if x["kernel"] == kernel]
+        for name in schedules:
+            sums[f"{kernel} / {name}"] = sum(x["ms"] for x in mine if x["schedule"] == name)
+        if has_walks:
+            sums[f"{kernel} / the pipeline's walks"] = sum(x["ms"] for x in mine if x["shipped"])
+    out["mesh_kernels_ms_per_sample"] = sums
+    print(json.dumps(sums, indent=1), flush=True)
+
+
+def host_us_per_launch(fn, busy, reps=200):
+    """Host microseconds per call of ``fn``, the mean over ``reps`` calls
+    enqueued back to back; with ``busy``, behind a spin kernel that keeps the
+    card busy past the last call's enqueue."""
+    torch.cuda.synchronize()
+    if busy:
+        torch.cuda._sleep(int(50e-3 * SPIN_HZ))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+# the spin kernel's clock, for a sleep of a given length (an H100 runs at up
+# to 1.98 GHz; a longer spin only leaves the card busy longer)
+SPIN_HZ = 2.0e9
+
+
+def measure_mesh_host(device, out):
+    path = os.path.join(REPO, "scenes", "mesh1080p.txt")
+    cfg = RenderConfig(sky_strength=1.0)
+    r = Renderer(path, cfg, device=device)
+    r.step(1)  # warm-up
+    laps = {}
+    for name in ("first", "second"):
+        walls = []
+        for _ in range(5):
+            r.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(4)
+            walls.append((time.perf_counter() - t0) / 4 * 1e3)
+        laps[name] = walls
+        print(f"mesh laps, {name}: ms/sample {[round(w, 3) for w in walls]}", flush=True)
+    out["mesh_host_laps_ms_per_sample"] = laps
+    rec = mesh.RayRecorder(r._step.cluster)
+    fast.trace_sample_mesh(r.scene, cfg, SEED, 1, rec)
+    rays = rec.soa[-1]
+    tables = r._step.cluster.tables
+    one = torch.zeros(1, device=device)
+    host = {}
+    for name, fn in (("K7 last bounce", lambda: mesh.KERNEL(tables, *rays, full=True)),
+                     ("torch add", lambda: one.add_(1.0))):
+        for busy in (False, True, False, True):
+            key = f"{name}, {'busy' if busy else 'idle'}"
+            host.setdefault(key, []).append(host_us_per_launch(fn, busy))
+    out["mesh_host_us_per_launch"] = host
+    print(json.dumps(host, indent=1), flush=True)
+
+
 def smi(query):
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -222,10 +359,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "build", "torch_measure.json"))
     ap.add_argument("--legs", default="megakernel,mesh",
-                    help="comma-separated: megakernel, mesh")
+                    help="comma-separated: megakernel, mesh, mesh-kernels, mesh-host")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
-    if not legs or legs - {"megakernel", "mesh"}:
+    if not legs or legs - {"megakernel", "mesh", "mesh-kernels", "mesh-host"}:
         ap.error(f"unknown legs {args.legs!r}")
     if not torch.cuda.is_available():
         print("torch_measure: no CUDA device available", file=sys.stderr)
@@ -237,6 +374,10 @@ def main() -> int:
         measure_megakernel(device, out)
     if "mesh" in legs:
         measure_mesh(device, out)
+    if "mesh-kernels" in legs:
+        measure_mesh_kernels(device, out)
+    if "mesh-host" in legs:
+        measure_mesh_host(device, out)
     out["smi_after"] = smi("clocks.current.sm,power.draw,power.limit,temperature.gpu")
 
     text = json.dumps(out, indent=1)

@@ -170,6 +170,25 @@ def test_unported_adaptive_options_raise(call, item):
         call(_port(dict(trace_depth=1)))
 
 
+@pytest.mark.parametrize(
+    "overrides", [dict(pipeline="fast"), dict(intersector="bvh"), dict(bvh_leaf_size=8)],
+    ids=lambda d: next(iter(d)),
+)
+def test_pipeline_fields_render_through_the_tile_kernel(overrides):
+    """The JAX AdaptiveRenderer never reads pipeline, intersector or
+    bvh_leaf_size, and neither does the port's: the image is the one the
+    defaults give."""
+    jad.AdaptiveRenderer(JScene.from_desc(jparse(CORNELL_SMALL)),
+                         JConfig(trace_depth=1, **overrides), interpret=True)
+    images = []
+    for extra in (overrides, {}):
+        r = _port(dict(trace_depth=1, **extra))
+        r.warmup(2)
+        images.append(r.linear_image())
+    np.testing.assert_array_equal(images[0], images[1])
+    assert images[0].mean() > 0
+
+
 def test_mesh_argument_raises():
     with pytest.raises(NotImplementedError, match="item 15"):
         AdaptiveRenderer(parse_scene(CORNELL_SMALL), RenderConfig(), device="cpu", mesh=object())

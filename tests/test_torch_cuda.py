@@ -192,6 +192,33 @@ def env_spheres_text(res=64, aperture=None):
     return with_aperture(text, aperture) if aperture is not None else text
 
 
+def many_cubes_text(n_cubes=20, n_materials=40, res=64, depth=3):
+    """A box of ``n_cubes`` cubes (``n_cubes`` ≥ 2): a floor, then small
+    cubes in a 6-wide grid, every third one rotated (a general transform),
+    under the last one, an emissive slab. The file holds ``n_materials``
+    materials and the cubes reference only the odd ids, so packing keeps
+    about half of them and renumbers every geom's and the light's id."""
+    text = ""
+    for m in range(n_materials):
+        c = (0.3 + 0.6 * ((m * 7) % 10) / 10, 0.3 + 0.6 * ((m * 3) % 10) / 10, 0.5)
+        mirror = m % 10 == 5
+        text += (f"MATERIAL {m}\nRGB {c[0]:.2f} {c[1]:.2f} {c[2]:.2f}\nSPECEX 0\n"
+                 f"SPECRGB {'.9 .9 .9' if mirror else '0 0 0'}\nREFL {int(mirror)}\nREFR 0\n"
+                 f"REFRIOR 0\nEMITTANCE {5 if m == n_materials - 1 else 0}\n\n")
+    text += (f"CAMERA\nRES {res} {res}\nFOVY 45\nITERATIONS 16\nDEPTH {depth}\nFILE cubes\n"
+             "EYE 0 5 10.5\nLOOKAT 0 4 0\nUP 0 1 0\n\n")
+    odd = lambda k: (2 * k + 1) % n_materials  # noqa: E731
+    text += f"OBJECT 0\ncube\nmaterial {odd(0)}\nTRANS 0 0 0\nROTAT 0 0 0\nSCALE 10 .01 10\n\n"
+    for k in range(1, n_cubes - 1):
+        x, z = -5 + 2 * ((k - 1) % 6), -3 + 2 * ((k - 1) // 6)
+        rot = "20 35 10" if k % 3 == 0 else "0 0 0"
+        text += (f"OBJECT {k}\ncube\nmaterial {odd(k)}\nTRANS {x} {0.5 + 0.4 * (k % 4)} {z}\n"
+                 f"ROTAT {rot}\nSCALE 1 {0.8 + 0.3 * (k % 3)} 1\n\n")
+    text += (f"OBJECT {n_cubes - 1}\ncube\nmaterial {n_materials - 1}\nTRANS 0 10 0\n"
+             "ROTAT 0 0 0\nSCALE 3 .3 3\n")
+    return text
+
+
 def tri_scene_desc(res=32):
     """tests/test_fast_mesh.py's ``tri_scene``: an emissive slab (a cube,
     material 0) above a triangulated 8×8 floor of 72 triangles (material 1),
@@ -286,7 +313,7 @@ def brute_force_mt(v0, e1, e2, rays):
     return np.where(hit, best, np.float32(1e30)).astype(np.float32), np.where(hit, idx, -1)
 
 
-def octant_walk(tables, rays):
+def octant_walk(tables, rays, walk="warp"):
     """The CUDA mesh kernel's walk, ray by ray in numpy: an active ray
     slab-tests every supercluster of its direction octant front to back, the
     16 clusters of each one it enters, and the rows of each cluster it
@@ -294,7 +321,17 @@ def octant_walk(tables, rays):
     ``t < best_t`` in row order keeps), all against its running best t.
     Returns (t [n], idx [n], work): ``work`` counts the supercluster slab
     tests ('sc_slab'), cluster slab tests ('cl_slab') and triangle tests
-    ('tri'), as the kernel's counting build does."""
+    ('tri'), as the kernel's counting build does, and the warp iterations
+    that run them ('sc_warp', 'cl_warp', 'tri_warp') in the kernel's
+    ``walk``. The lane walk: warps of 32 consecutive rays (the last one
+    padded with inactive lanes), whose rays step through the superclusters
+    together; those that enter a supercluster walk its clusters side by
+    side, 16 iterations, then ``cluster_size`` for each cluster index that
+    any of them enters. The warp walk: a warp serves each active ray alone,
+    32 superclusters an iteration, then one iteration for the 16 cluster
+    slabs of each supercluster the ray enters and ``cluster_size / 32`` for
+    each cluster it enters."""
+    assert walk in tmesh.WALKS
     tri = tables.tri_rows.cpu().numpy()
     sc = tables.sc_rows.cpu().numpy()
     cl = tables.cl_rows.cpu().numpy()
@@ -303,6 +340,7 @@ def octant_walk(tables, rays):
     t_out = np.full(len(ox), np.float32(1e30), np.float32)
     i_out = np.full(len(ox), -1)
     work = {"sc_slab": 0, "cl_slab": 0, "tri": 0}
+    entered = {}  # ray -> {supercluster: [the clusters it enters]}
     for p in np.nonzero(active > 0.5)[0]:
         o = np.array([ox[p], oy[p], oz[p]], np.float32)
         d = np.array([dx[p], dy[p], dz[p]], np.float32)
@@ -319,15 +357,18 @@ def octant_walk(tables, rays):
             tmax = np.minimum(np.minimum(hi[0], hi[1]), hi[2])
             return bool(tmax >= tmin) and bool(tmin < best)
 
+        path = entered[p] = {}
         for s in range(s_count):
             work["sc_slab"] += 1
             if not slab(sc[octant * s_count + s]):
                 continue
+            path[s] = []
             for k in range(16):
                 box = cl[(octant * s_count + s) * 16 + k]
                 work["cl_slab"] += 1
                 if not slab(box):
                     continue
+                path[s].append(k)
                 work["tri"] += cs
                 rows = tri[int(box[6]): int(box[6]) + cs]
                 bt, bj = brute_force_mt(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9],
@@ -335,6 +376,24 @@ def octant_walk(tables, rays):
                 if bj[0] >= 0 and bt[0] < best:
                     best, best_i = bt[0], int(rows[bj[0], 13])
         t_out[p], i_out[p] = best, best_i
+    work.update(sc_warp=0, cl_warp=0, tri_warp=0)
+    rows_step = -(-cs // 32)  # iterations of 32 lanes over a cluster's rows
+    if walk == "warp":
+        for ray in entered.values():
+            work["sc_warp"] += -(-s_count // 32)
+            work["cl_warp"] += len(ray)
+            work["tri_warp"] += rows_step * sum(len(k) for k in ray.values())
+        return t_out, i_out, work
+    for w in range(0, len(ox), 32):
+        rays_w = [entered[p] for p in range(w, min(w + 32, len(ox))) if p in entered]
+        if not rays_w:
+            continue
+        work["sc_warp"] += s_count
+        for s in range(s_count):
+            ks = [ray[s] for ray in rays_w if s in ray]
+            if ks:
+                work["cl_warp"] += 16
+                work["tri_warp"] += cs * len(set().union(*ks))
     return t_out, i_out, work
 
 
@@ -506,6 +565,24 @@ def test_cuda_kernel_options_match_plain_version(case, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("config", [dict(), dict(nee=True, sampler="sobol")],
+                         ids=["default", "nee-sobol"])
+def test_cuda_twenty_cubes_match_plain_version(config, cuda):
+    """20 cubes over 40 file materials (20 referenced): past the 16-row
+    tables of earlier builds; the light's material id is renumbered."""
+    scene = Scene.from_desc(parse_scene(many_cubes_text(20)), cuda)
+    config = RenderConfig(**config)
+    assert config.resolve_pipeline(scene) == "pallas"
+    launches = tmk.KERNEL.launches
+    got = tmk.render_samples(scene, config, 7, 1, 2)
+    assert tmk.KERNEL.launches == launches + 1
+    pix = torch.arange(scene.camera.pixel_count, device=cuda)
+    opts = tmk.kernel_options(config)
+    want = tmk.render_samples_reference(pix, tmk.pack_scene(scene, nee=opts.nee), opts, 7, 1, 2)
+    assert_matches_plain_version(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
 def test_cuda_early_exit_is_bit_identical(cuda):
     scene, config = _option_scene("sphere-early-exit", cuda)
     on = tmk.render_samples(scene, config, 7, 1, 2)
@@ -584,30 +661,47 @@ def assert_mesh_kernel_matches_plain(isect, rays, max_tie_share=0.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bvh", [False, True], ids=["consecutive", "treelets"])
 def test_cuda_mesh_kernels_match_plain_version(bvh, cuda):
+    """K7/K8 against the plain version, and both walks of the kernel against
+    each other (all outputs equal) and against the octant_walk emulation on
+    the first 4096 rays: the same t and index, ties included."""
     isect = _soup_intersector(cuda, bvh)
     rays = [torch.tensor(np.ascontiguousarray(r), device=cuda) for r in soup_rays(9, n=65536)]
     launches = dict(tmesh.KERNEL.launches_by_mode)
     assert assert_mesh_kernel_matches_plain(isect, rays) > 1000
     assert tmesh.KERNEL.launches_by_mode["full"] == launches.get("full", 0) + 1
     assert tmesh.KERNEL.launches_by_mode["tmin"] == launches.get("tmin", 0) + 1
+    t, idx, _ = octant_walk(isect.tables, [r[:4096].cpu().numpy() for r in rays])
+    for full in (True, False):
+        lane = tmesh.KERNEL(isect.tables, *rays, full=full, walk="lane")
+        warp = tmesh.KERNEL(isect.tables, *rays, full=full, walk="warp")
+        for g, w in zip(lane, warp):
+            assert torch.equal(g, w)
+        np.testing.assert_array_equal(lane[0][:4096].cpu().numpy(), t)
+    np.testing.assert_array_equal(tmesh.KERNEL(isect.tables, *rays)[1][:4096].cpu().numpy(), idx)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("walk", tmesh.WALKS)
 @pytest.mark.parametrize("bvh", [False, True], ids=["consecutive", "treelets"])
-def test_cuda_mesh_kernel_counts_its_own_work(bvh, cuda):
+def test_cuda_mesh_kernel_counts_its_own_work(bvh, walk, cuda):
     """The counting build adds up the kernel's own walk (the octant_walk
-    emulation's counts, exactly) and returns what the production build
+    emulation's counts, exactly): the tests, the same in both walks, and the
+    warp iterations of this one; and it returns what the production build
     returns."""
     isect = _soup_intersector(cuda, bvh)
     rays = [torch.tensor(np.ascontiguousarray(r), device=cuda) for r in soup_rays(9, n=2048)]
-    want = octant_walk(isect.tables, [r.cpu().numpy() for r in rays])[2]
-    assert tmesh.kernel_work(isect.tables, *rays) == want
-    assert tmesh.kernel_work(isect.tables, *rays, full=False) == want
-    work = torch.zeros(3, dtype=torch.int64, device=cuda)
-    counted = tmesh.COUNTING(isect.tables, *rays, full=True, work=work)
-    for c, p in zip(counted, tmesh.KERNEL(isect.tables, *rays, full=True)):
+    host = [r.cpu().numpy() for r in rays]
+    want = octant_walk(isect.tables, host, walk)[2]
+    tests = ("sc_slab", "cl_slab", "tri")
+    other = octant_walk(isect.tables, host, "lane" if walk == "warp" else "warp")[2]
+    assert {k: want[k] for k in tests} == {k: other[k] for k in tests}
+    assert tmesh.kernel_work(isect.tables, *rays, walk=walk) == want
+    assert tmesh.kernel_work(isect.tables, *rays, full=False, walk=walk) == want
+    work = torch.zeros(len(tmesh.WORK), dtype=torch.int64, device=cuda)
+    counted = tmesh.COUNTING(isect.tables, *rays, full=True, work=work, walk=walk)
+    for c, p in zip(counted, tmesh.KERNEL(isect.tables, *rays, full=True, walk=walk)):
         assert torch.equal(c, p)
-    assert work.tolist() == [want["sc_slab"], want["cl_slab"], want["tri"]]
+    assert work.tolist() == [want[k] for k in tmesh.WORK]
 
 
 @pytest.mark.cuda

@@ -21,7 +21,7 @@ from cosc_4397_pathtracing_raytracing_project_tpu.render.engine import make_pall
 from cosc_4397_pathtracing_raytracing_project_tpu.render.state import RenderState as JState
 from cosc_4397_pathtracing_raytracing_project_tpu.scene import Scene as JScene
 from cosc_4397_pathtracing_raytracing_project_tpu.scene import parse_scene as jparse
-from cosc_4397_pathtracing_raytracing_project_tpu_torch import RenderConfig, Renderer, parse_scene
+from cosc_4397_pathtracing_raytracing_project_tpu_torch import RenderConfig, Renderer, Scene, parse_scene
 from cosc_4397_pathtracing_raytracing_project_tpu_torch import convert
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import read_png
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import tonemap
@@ -29,7 +29,7 @@ from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakern
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.scene import derive_camera
 
 from test_render import CORNELL_SMALL
-from test_torch_cuda import assert_within_oracle_tolerance
+from test_torch_cuda import assert_within_oracle_tolerance, many_cubes_text
 
 torch.set_num_threads(2)
 
@@ -186,6 +186,76 @@ def test_mesh_fields_are_accepted(overrides):
     base = _renderer(trace_depth=1)
     base.render(1)
     assert torch.equal(r.state.accum, base.state.accum)
+
+
+def _cubes_text(n):
+    """``many_cubes_text`` with ``n`` cubes; 0 keeps the materials and the
+    camera, without objects."""
+    return many_cubes_text(2).split("OBJECT 0")[0] if n == 0 else many_cubes_text(n)
+
+
+@pytest.mark.parametrize("config", [dict(), dict(nee=True, sampler="sobol")],
+                         ids=["default", "nee-sobol"])
+def test_twenty_cubes_route_to_the_megakernel(config):
+    """20 cubes over 40 materials (past the old 16-row tables) take the
+    megakernel, as in JAX; the CUDA case of test_torch_cuda.py renders it."""
+    text = _cubes_text(20)
+    scene = Scene.from_desc(parse_scene(text), "cpu")
+    assert tmk.supports(scene) and jmk.supports(JScene.from_desc(jparse(text)))
+    assert RenderConfig(**config).resolve_pipeline(scene) == "pallas"
+    r = Renderer(scene, RenderConfig(trace_depth=1, **config), device="cpu")
+    assert r.pipeline == "pallas"
+    r.render(1)
+    assert np.isfinite(r.linear_image()).all() and r.linear_image().mean() > 0
+
+
+@pytest.mark.parametrize("count", [0, 65])
+def test_primitive_counts_outside_the_megakernel_raise(count):
+    """0 or more than 64 analytic primitives run on the JAX reference
+    pipeline, which the port does not carry yet."""
+    text = _cubes_text(count)
+    scene = Scene.from_desc(parse_scene(text), "cpu")
+    assert scene.cubes.count + scene.spheres.count == count
+    assert not tmk.supports(scene) and not jmk.supports(JScene.from_desc(jparse(text)))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        RenderConfig().resolve_pipeline(scene)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        Renderer(scene, RenderConfig(), device="cpu")
+
+
+def test_unreferenced_materials_are_dropped_when_packing():
+    """The 40-material file packs 20 materials, densely renumbered in id
+    order, and the light's id follows its geom's."""
+    scene = Scene.from_desc(parse_scene(_cubes_text(20)), "cpu")
+    packed = tmk.pack_scene(scene, nee=True)
+    ids = scene.cubes.material_id.numpy()
+    used = np.unique(ids)
+    assert packed.num_materials == used.size == 20 < scene.materials.color.shape[0]
+    np.testing.assert_array_equal(packed.gmat, np.searchsorted(used, ids))
+    np.testing.assert_array_equal(packed.mats.reshape(-1, 10)[:, :3],
+                                  scene.materials.color.numpy()[used])
+    assert packed.lights.mat.tolist() == [packed.gmat[-1]] == [19]
+
+
+def test_many_materials_render_as_the_oracle(port_tiles):
+    """A file of 40 materials (8 cubes) renders on the CPU as the JAX
+    megakernel in interpret mode renders it, CORNELL_SMALL's size, depth 3.
+    Measured: bit-identical (development host, jax 0.9.0, torch 2.13.0)."""
+    text = _cubes_text(8)
+    saved = jmk.TILE_ROWS, jmk.TILE
+    jmk.TILE_ROWS, jmk.TILE = 32, 32 * 128
+    jmk._render_samples_impl.clear_cache()
+    try:
+        want = np.asarray(jmk.render_samples(
+            JScene.from_desc(jparse(text)), JConfig(trace_depth=3), jnp.int32(0), jnp.int32(1),
+            2, interpret=True))
+    finally:
+        jmk.TILE_ROWS, jmk.TILE = saved
+        jmk._render_samples_impl.clear_cache()
+    scene = Scene.from_desc(parse_scene(text), "cpu")
+    assert tmk.pack_scene(scene).num_materials == 8
+    got = tmk.render_samples(scene, RenderConfig(trace_depth=3), 0, 1, 2)
+    assert_within_oracle_tolerance(got.numpy(), want)
 
 
 def test_config_fields_and_defaults_match_jax():

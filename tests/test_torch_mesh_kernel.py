@@ -238,6 +238,29 @@ def test_octant_walk_matches_plain_version(tri_pair, soup_pair, case):
     assert 0 < work["tri"] < int(a.sum()) * port.num_clusters * tmesh.CLUSTER
 
 
+@pytest.mark.parametrize("case", ["tri_scene", "soup"])
+def test_octant_walk_counts_warp_iterations(tri_pair, soup_pair, case):
+    """The emulation's warp iterations, which the CUDA tests hold the
+    counting build to, in each of the kernel's walks: the tests are the same
+    in both. The lane walk steps a warp with an active ray through every
+    supercluster, 16 cluster slabs side by side and cluster_size rows per
+    cluster index; the warp walk runs 32 superclusters a step, 16 lanes on a
+    ray's clusters and 32 on its rows."""
+    port, _, rays = tri_pair if case == "tri_scene" else soup_pair[:3]
+    a = rays[6] > 0.5
+    s_count = port.num_super
+    lane, warp = (octant_walk(port.tables, rays, walk)[2] for walk in ("lane", "warp"))
+    tests = ("sc_slab", "cl_slab", "tri")
+    assert {k: lane[k] for k in tests} == {k: warp[k] for k in tests}
+    warps_active = int(np.add.reduceat(a, np.arange(0, a.size, 32)).astype(bool).sum())
+    assert lane["sc_warp"] == s_count * warps_active
+    assert lane["cl_warp"] % tmesh.SUPER == 0 and lane["tri_warp"] % tmesh.CLUSTER == 0
+    assert 32 * lane["tri_warp"] >= lane["tri"] > 0
+    assert warp["sc_warp"] == int(a.sum()) * -(-s_count // 32)
+    assert tmesh.SUPER * warp["cl_warp"] == warp["cl_slab"]
+    assert 32 * warp["tri_warp"] == warp["tri"]
+
+
 def test_tables_hold_the_triangles_bounds(tri_pair):
     """``tables.bounds``: the triangles' bounding-box minimum and its extent
     clamped at 1e-3, as the mesh pipeline's ray sort computed them from the

@@ -38,6 +38,7 @@ from cosc_4397_pathtracing_raytracing_project_tpu.render.engine import (
 from cosc_4397_pathtracing_raytracing_project_tpu.scene import Scene as JScene
 from cosc_4397_pathtracing_raytracing_project_tpu_torch import RenderConfig, Renderer, Scene
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import fast
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as tmesh
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.lights import make_light_sampler
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import (
     make_mesh_intersector,
@@ -116,6 +117,56 @@ def test_sort_is_image_invariant(scenes):
     ]
     for other in images[1:]:
         np.testing.assert_allclose(images[0], other, rtol=1e-6, atol=1e-7)
+
+
+class _LiveShadows:
+    """The intersector with the shadow-ray mask the JAX package passes: every
+    live ray of the bounce (its nearest-hit call's mask), not only those whose
+    light sample can count. Keeps each (narrow, live) pair of masks."""
+
+    def __init__(self, inner):
+        self.inner, self.tables, self.live, self.masks = inner, inner.tables, None, []
+
+    def call_soa(self, *rays, active=None, walk="warp"):
+        self.live = active
+        return self.inner.call_soa(*rays, active=active, walk=walk)
+
+    def call_t(self, *rays, active=None):
+        self.masks.append((active, self.live))
+        return self.inner.call_t(*rays, active=self.live)
+
+
+@pytest.mark.parametrize("case", ["nee", "nee-sobol-aa"])
+def test_narrow_shadow_mask_keeps_the_image(scenes, case):
+    """K8 traces only the shadow rays whose sample can count: the image is
+    bit-identical to tracing every live ray's, with fewer rays traced."""
+    port, _, isect, _ = scenes
+    cfg = RenderConfig(**dict(CASES[case], mesh_sort_every=1))
+    sampler = make_light_sampler(port)
+    live = _LiveShadows(isect)
+    want = fast.trace_sample_mesh(port, cfg, SEED, 1, live, light_sampler=sampler)
+    got = fast.trace_sample_mesh(port, cfg, SEED, 1, isect, light_sampler=sampler)
+    assert torch.equal(got, want) and want.mean() > 0
+    assert len(live.masks) == cfg.trace_depth
+    for narrow, alive in live.masks:
+        assert not bool((narrow & ~alive).any())
+    assert sum(int(m.sum()) for m, _ in live.masks) < sum(int(a.sum()) for _, a in live.masks)
+
+
+@pytest.mark.parametrize("case", ["independent-sorted", "nee"])
+def test_primary_rays_take_the_lane_walk(scenes, case):
+    """The pipeline asks the kernel for its lane walk on the primary rays
+    (all live, coherent) and for its warp walk on every later bounce; the
+    image does not depend on it."""
+    port, _, isect, _ = scenes
+    cfg = RenderConfig(**CASES[case])
+    sampler = make_light_sampler(port) if cfg.nee else None
+    rec = tmesh.RayRecorder(isect)
+    got = fast.trace_sample_mesh(port, cfg, SEED, 1, rec, light_sampler=sampler)
+    assert rec.walks == ["lane"] + ["warp"] * (cfg.trace_depth - 1)
+    assert bool((rec.soa[0][6] > 0.5).all())
+    want = fast.trace_sample_mesh(port, cfg, SEED, 1, isect, light_sampler=sampler)
+    assert torch.equal(got, want)
 
 
 def test_renderer_runs_fast_mesh_on_the_cpu(scenes):
