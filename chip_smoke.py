@@ -6,14 +6,18 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. build: compile the port's CUDA sources (csrc/megakernel.cu and
-   csrc/mesh_kernel.cu, the latter also as its work-counting build, one nvcc
-   each, started together) into build/torch_kernels/ and print ptxas'
+   csrc/mesh_kernel.cu, each also as its work-counting build, one nvcc
+   each, all started together) into build/torch_kernels/ and print ptxas'
    register and spill report for each compile-time variant of the
    megakernel and each instantiation of the mesh kernel;
 2. kernel vs plain: the megakernel against its plain PyTorch version on the
    card, at the main path's shapes (scenes/cornell.txt, 800×800, depth 8,
    2 spp, and the golden leg's antialiased variant), within the stated
-   tolerance; then the time of one 50-sample launch of each;
+   tolerance; then the time of one 50-sample launch of each, and the bounce
+   loop's SIMT efficiency in that launch: the megakernel's counting build
+   against megakernel.warp_schedule's replay of the warps it recorded, on
+   the plain version's path lengths (the counts must be equal), beside a
+   thread per pixel's on the same paths;
 3. main path: Renderer(cornell.txt, samples_per_launch=200, sampler='sobol'),
    warm-up step, reset, best of 3 renders of 1000 spp; prints rays/s and
    ms/iteration and checks the kernel's launch count of that run;
@@ -759,8 +763,8 @@ def main() -> int:
         build.build(kernel.name, kernel.flags)
         return time.perf_counter() - t0
 
-    libs = {"megakernel": mk.KERNEL, "mesh_kernel": mesh.KERNEL,
-            "mesh_kernel (counting)": mesh.COUNTING}
+    libs = {"megakernel": mk.KERNEL, "megakernel (counting)": mk.COUNTING,
+            "mesh_kernel": mesh.KERNEL, "mesh_kernel (counting)": mesh.COUNTING}
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         done = {what: pool.submit(timed_build, kernel) for what, kernel in libs.items()}
         for what, fut in done.items():
@@ -802,6 +806,20 @@ def main() -> int:
     k1_bound = _bound(packed, opts, work, pix.numel() * 12, 0)
     print(f"  one {chunk}-sample launch at 800x800: kernel {ms:.3f} ms, "
           f"plain version {plain_ms:.1f} ms; bound {k1_bound[0]:.4f} ms ({k1_bound[1]})")
+    # the bounce loop's warp schedule: the counting build against the
+    # emulation's replay of the warps it recorded, on the plain version's
+    # path lengths of the same launch
+    counted, owners = mk.kernel_warp_work(packed, opts, seed, 1, chunk, device)
+    steps, draws = mk.path_lengths(work)
+    emulated = mk.warp_schedule(steps, draws, mk.SCHEDULE, **mk.schedule_args(opts),
+                                owners=owners)
+    today = mk.warp_schedule(steps, draws, "thread")
+    print(f"  bounce loop, counting build: {counted}, SIMT efficiency "
+          f"{counted['lane_iters'] / (32 * counted['warp_iters']):.4f}; emulation "
+          f"{ {k: emulated[k] for k in mk.WORK} }, {emulated['efficiency']:.4f} (a thread per "
+          f"pixel: {today['efficiency']:.4f}, {today['warp_iters']} warp iterations)")
+    if counted != {k: emulated[k] for k in mk.WORK}:
+        raise AssertionError("the counting build's warp counts differ from the emulation's")
 
     # 3. main path
     print("[3] main path: cornell.txt, samples_per_launch=200, sampler='sobol', 3 x 1000 spp")

@@ -16,7 +16,8 @@ composited outside the kernel (K5).
 
 - :func:`render_samples` and :func:`render_tiles` are the entry points. On
   a scene whose tensors lie on a CUDA device they launch
-  ``csrc/megakernel.cu`` (one thread per pixel); on the CPU they run
+  ``csrc/megakernel.cu`` (persistent warps over a pixel queue with path
+  regeneration, emulated by :func:`warp_schedule`); on the CPU they run
   :func:`render_samples_reference` / :func:`render_tiles_reference`. There
   is no fallback from one to the other.
 - The plain versions are the same math, in the same operation order, and
@@ -1086,7 +1087,10 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
     ('scatter'), analytic-light shadow rays ('shadow'), env NEE shadow
     rays ('env_shadow'), sun shadow rays ('sun_shadow'), SH-9 sky
     evaluations ('sh'), escape lookups ('env_lookup') and the escape's pdf
-    lookups under env NEE ('env_pdf'), as 0-d tensors."""
+    lookups under env NEE ('env_pdf'), as 0-d tensors; and per path, the
+    bounce-loop iterations it entered ('path_steps') and those of them that
+    reached the draws, past the miss and emitter exits ('path_draws'), as
+    lists of int32 [S, N] tensors, one per batch (:func:`path_lengths`)."""
     mat_cols = torch.as_tensor(
         packed.mats.reshape(-1, _MF).T.copy(), device=px.pid.device
     )  # [10, M]
@@ -1117,6 +1121,8 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
     rad_b = torch.zeros(shape, **f32)
     prev_pdf = torch.full(shape, -1.0, **f32)
     alive = torch.ones(shape, dtype=torch.bool, device=px.pid.device)
+    steps = torch.zeros(shape, dtype=torch.int32, device=px.pid.device)
+    draws = torch.zeros(shape, dtype=torch.int32, device=px.pid.device)
     if exact:
         # deferred escape: throughput, direction and lobe pdf at the escape
         # (never-escaped samples keep weight 0 and a valid direction)
@@ -1129,6 +1135,7 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
         e_pp = torch.full(shape, -1.0, **f32)
 
     for depth in range(opts.trace_depth):
+        steps += alive
         rr = depth > opts.rr_start_depth
         u_rr = u_l0 = u_l1 = u_l2 = None
         if opts.use_ld and depth < opts.n_ld:
@@ -1228,6 +1235,7 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
             rad_g = torch.where(hit_light, rad_g + cg * m_cg * m_emit, rad_g)
             rad_b = torch.where(hit_light, rad_b + cb * m_cb * m_emit, rad_b)
         act = act & ~(m_emit > 0.0)
+        draws += act
 
         if rr:  # Russian roulette with the 1/p boost
             p_cont = torch.maximum(m_cr, torch.maximum(m_cg, m_cb))
@@ -1408,6 +1416,9 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
         dy = torch.where(act, ndy, dy)
         dz = torch.where(act, ndz, dz)
         alive = act
+    if stats is not None:
+        stats.setdefault("path_steps", []).append(steps)
+        stats.setdefault("path_draws", []).append(draws)
     if opts.legacy:  # every path's terminal throughput, as `pathtrace.cu:439-444`
         return (cr, cg, cb)
     if not exact:
@@ -1526,6 +1537,194 @@ def render_tiles_reference(
     return _render_reference(packed, opts, seed, pixels, num_samples, stats)
 
 
+def path_lengths(stats: dict) -> Tuple[np.ndarray, np.ndarray]:
+    """The per-path counts of :func:`_trace_batch`'s ``stats`` as two int64
+    [S, N] arrays: bounce-loop iterations entered, and those of them that
+    reached the draws."""
+    return tuple(
+        torch.cat(stats[key], dim=0).cpu().numpy().astype(np.int64)
+        for key in ("path_steps", "path_draws")
+    )
+
+
+def schedule_args(opts: KernelOptions, tiles: bool = False) -> dict:
+    """The kernel options :func:`warp_schedule` reads: the Sobol depths,
+    whether the primary hit is hoisted, and how many lanes start a sample
+    together (12 under an environment map over the full frame, else each at
+    once)."""
+    return dict(use_ld=opts.use_ld, n_ld=opts.n_ld, hoisted=not (opts.antialias or opts.dof),
+                batch=12 if opts.env != "none" and not tiles else 1)
+
+
+def warp_schedule(
+    steps: np.ndarray,
+    draws: np.ndarray,
+    schedule: str = "regen",
+    use_ld: bool = False,
+    n_ld: int = 0,
+    hoisted: bool = False,
+    batch: int = 1,
+    warps: Optional[int] = None,
+    owners: Optional[np.ndarray] = None,
+) -> dict:
+    """Emulate the kernel's warps on the plain version's path lengths
+    (:func:`path_lengths`; ``steps``/``draws`` [S, N] by sample and by the
+    kernel's pixel index) and return the counting build's counts (:data:`WORK`)
+    with their SIMT efficiency, and how the pixels were served.
+
+    ``schedule="thread"`` is a thread per pixel rendering its samples in
+    series, a warp per 32 consecutive pixels: every lane of a warp is at the
+    same sample and depth, so a sample costs the warp its longest path and
+    both draw branches never run in one iteration. ``schedule="regen"`` is
+    path regeneration over the pixel queue: a persistent warp whose lanes
+    each take one step of their own path per iteration, start their pixel's
+    next sample when a path ends and take the next pixel of the warp's chunk
+    of 32 (in lane order; one more chunk from the queue when it runs out)
+    when their pixel's samples are done. With the primary hit ``hoisted``, a
+    pixel whose first path ends at its first vertex before any draw (a miss
+    or an emitter) ends so in every sample: its lane settles them all at
+    once and takes its next pixel. Lanes whose next sample (or first, on a
+    new pixel) is pending start it together once ``batch`` of them wait or
+    no lane of the warp is inside a path. ``owners`` [ceil(N/32)] is the warp
+    that took each chunk (the counting build records it); without it,
+    ``warps`` warps step in lockstep and take chunks in warp order.
+
+    Returns ``warp_iters``, ``lane_iters``, ``both_draws``, ``efficiency``,
+    ``settle_iters`` (warp iterations in which some lane settled a sample:
+    the per-sample work, such as the exact environment's escape lookup, runs
+    in each of them), ``repeated`` (samples settled with an earlier one's
+    path, each one loop iteration of the plain version), and per pixel the
+    lane that served it (``lane_of``, warp·32 + lane), the number of times
+    it was served (``visits``), its samples settled (``samples``) and
+    whether every pixel's samples settled in ascending order
+    (``in_order``)."""
+    steps = np.asarray(steps, np.int64)
+    draws = np.asarray(draws, np.int64)
+    num_samples, n = steps.shape
+    if schedule == "thread":
+        pad = (-n) % 32
+        per_warp = np.pad(steps, ((0, 0), (0, pad))).reshape(num_samples, -1, 32)
+        iters = int(per_warp.max(axis=2).sum())
+        lanes = int(steps.sum())
+        return dict(
+            warp_iters=iters, lane_iters=lanes, both_draws=0,
+            settle_iters=num_samples * per_warp.shape[1], repeated=0,
+            efficiency=lanes / (32 * iters) if iters else 1.0,
+            lane_of=np.arange(n), visits=np.ones(n, np.int64),
+            samples=np.full(n, num_samples, np.int64), in_order=True,
+        )
+    if schedule != "regen":
+        raise ValueError(f"unknown schedule {schedule!r}")
+    chunks = (n + 31) // 32
+    if owners is not None:
+        owners = np.asarray(owners, np.int64)
+        if owners.shape != (chunks,) or owners.min(initial=0) < 0:
+            raise ValueError(f"owners must be [{chunks}] warp ids")
+        warps = int(owners.max(initial=-1)) + 1
+        order = np.argsort(owners, kind="stable")  # each warp's chunks, ascending
+        first = np.searchsorted(owners[order], np.arange(warps))
+        last = np.searchsorted(owners[order], np.arange(warps), side="right")
+    elif warps is None or warps < 1:
+        raise ValueError("the regen schedule needs warps or owners")
+    length = steps.T.copy()  # [N, S]
+    drawn = draws.T.copy()
+    pix = np.full((warps, 32), -1, np.int64)
+    pend = np.zeros((warps, 32), bool)
+    smp = np.zeros((warps, 32), np.int64)
+    dep = np.zeros((warps, 32), np.int64)
+    q_next = np.zeros(warps, np.int64)
+    q_end = np.zeros(warps, np.int64)
+    drained = np.zeros(warps, bool)
+    lane_of = np.full(n, -1, np.int64)
+    visits = np.zeros(n, np.int64)
+    settled = np.zeros(n, np.int64)
+    in_order = True
+    counter = 0
+    rows = np.arange(warps)[:, None]
+    gid = rows * 32 + np.arange(32)[None, :]
+
+    def refill():
+        nonlocal counter
+        need = (pix < 0) & ~drained[:, None]
+        n_need = need.sum(axis=1)
+        take = np.minimum(n_need, q_end - q_next)
+        fetch = (n_need > take) & ~drained
+        if owners is not None:
+            nxt = first + 0
+            base = np.where(nxt < last, order[np.minimum(nxt, len(order) - 1)] * 32, n)
+            first[fetch] += 1
+        else:
+            rank = np.cumsum(fetch) - 1
+            base = counter + 32 * rank
+            counter += 32 * int(fetch.sum())
+        got = fetch & (base < n)
+        drained[fetch & ~got] = True
+        end = np.minimum(base + 32, n)
+        r = np.cumsum(need, axis=1) - 1
+        old = need & (r < take[:, None])
+        new = need & ~old & got[:, None] & (r - take[:, None] < (end - base)[:, None])
+        assigned = np.where(old, q_next[:, None] + r, base[:, None] + r - take[:, None])
+        mask = old | new
+        pix[mask] = assigned[mask]
+        pend[mask] = True
+        smp[mask] = 0
+        dep[mask] = 0
+        lane_of[pix[mask]] = gid[mask]
+        visits[pix[mask]] += 1
+        q_next[:] = np.where(got, base + np.minimum(n_need - take, end - base), q_next + take)
+        q_end[:] = np.where(got, end, q_end)
+
+    iters = lanes = both = settles = repeated = 0
+    refill()
+    while True:
+        held = pix >= 0
+        if not held.any():
+            break
+        waiting = held & pend
+        go = (waiting.sum(axis=1) >= batch) | ~(held & ~pend).any(axis=1)
+        act = held & (~pend | go[:, None])
+        pend &= ~act
+        busy = act.any(axis=1)
+        iters += int(busy.sum())
+        lanes += int(act.sum())
+        p, sm, d = pix[act], smp[act], dep[act]
+        if use_ld:
+            reach = np.zeros((warps, 32), bool)
+            reach[act] = d < drawn[p, sm]
+            ld = np.zeros((warps, 32), bool)
+            ld[act] = d < n_ld
+            both += int((((reach & ld).any(axis=1)) & ((reach & ~ld).any(axis=1))).sum())
+        dep[act] += 1
+        done = np.zeros((warps, 32), bool)
+        done[act] = dep[act] == length[p, sm]
+        if done.any():
+            settles += int(done.any(axis=1).sum())
+            dp, ds = pix[done], smp[done]
+            in_order = in_order and bool((settled[dp] == ds).all())
+            settled[dp] += 1
+            smp[done] += 1
+            dep[done] = 0
+            pend |= done
+            if hoisted:
+                # a first path that ended at its first vertex before any draw
+                # repeats in every later sample, settled at once
+                rep = np.zeros((warps, 32), bool)
+                rep[done] = (length[dp, ds] == 1) & (drawn[dp, ds] == 0)
+                rest = np.where(rep, num_samples - smp, 0)
+                repeated += int(rest.sum())
+                settled[pix[rep]] += rest[rep]
+                smp[rep] = num_samples
+            fin = done & (smp == num_samples)
+            pix[fin] = -1
+        refill()
+    return dict(
+        warp_iters=iters, lane_iters=lanes, both_draws=both, settle_iters=settles,
+        repeated=repeated,
+        efficiency=lanes / (32 * iters) if iters else 1.0,
+        lane_of=lane_of, visits=visits, samples=settled, in_order=in_order,
+    )
+
+
 # ──────────────────────────────── kernel ────────────────────────────────
 
 
@@ -1540,9 +1739,14 @@ class Megakernel:
 
     def __init__(self, flags: Sequence[str] = NVCC_FLAGS):
         self.flags = tuple(flags)
+        self.counts = "-DPT_MEGA_COUNT" in self.flags
         self.launches = 0
         self.launches_by_variant: dict = {}
         self._lib: Optional[ctypes.CDLL] = None
+        # the pixel queue's counter, one per (device, stream): a launch zeroes
+        # it on its stream first, so launches on one stream reuse it in turn
+        # and launches on two streams never share one
+        self._queues: dict = {}
 
     def reset_counts(self) -> None:
         self.launches = 0
@@ -1562,6 +1766,7 @@ class Megakernel:
                 p, p, p, i,  # tile dispatch
                 i, p, p, p, i, i,  # environment: mode, radiance, pdf, NEE rows, h, w
                 p, i, p, i,  # split: suns, count, SH, background outside
+                p, p, p,  # pixel queue; work counters and chunk owners (counting build)
                 p,  # stream
             ]
             self._lib = lib
@@ -1577,6 +1782,8 @@ class Megakernel:
         device: torch.device,
         tiles: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
         env_rows: Optional[torch.Tensor] = None,
+        work: Optional[torch.Tensor] = None,
+        owners: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Launch over the full frame, or with ``tiles = (table, px, py)``
         over K chosen tiles: ``table`` int32 [2K] (K tile ids, then K
@@ -1584,12 +1791,20 @@ class Megakernel:
         ``device``. Env NEE reads the shared rows of this launch's
         iterations, ``env_rows`` [num_samples·trace_depth, 8] on ``device``,
         which are built here before the launch when not given
-        (:func:`build_env_nee_rows`)."""
+        (:func:`build_env_nee_rows`). The counting build (:data:`COUNTING`)
+        takes ``work``, ``len(WORK)`` int64 counters it adds to, and
+        ``owners``, int32 [ceil(N/32)], where it writes the warp that took
+        each chunk of 32 pixels; any other build raises on them."""
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"the CUDA megakernel needs a CUDA device, got {device}")
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        if (work is not None) != self.counts or (owners is not None) != self.counts:
+            raise ValueError("work and owners go with a -DPT_MEGA_COUNT build, and only there")
+        if work is not None and (work.device != device or work.dtype != torch.int64
+                                 or work.shape != (len(WORK),) or not work.is_contiguous()):
+            raise ValueError(f"work must be a contiguous int64 [{len(WORK)}] tensor on {device}")
         if packed.num_geoms > MAX_GEOMS or packed.num_materials > MAX_MATERIALS:
             raise ValueError(
                 f"scene has {packed.num_geoms} geoms / {packed.num_materials} "
@@ -1647,12 +1862,21 @@ class Megakernel:
         elif env_mode == 3:
             suns = np.ascontiguousarray(env.suns.reshape(-1), np.float32)
             sh = np.ascontiguousarray(env.sh.reshape(-1), np.float32)
+        if owners is not None and (owners.device != device or owners.dtype != torch.int32
+                                   or owners.shape != ((n + 31) // 32,)
+                                   or not owners.is_contiguous()):
+            raise ValueError(f"owners must be a contiguous int32 [{(n + 31) // 32}] tensor "
+                             f"on {device}")
         fn = self._fn()
         out = torch.empty((n, 3), dtype=torch.float32, device=device)
         ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
         dptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
+            queue = self._queues.get((device.index, stream))
+            if queue is None:
+                queue = torch.zeros(1, dtype=torch.int32, device=device)
+                self._queues[(device.index, stream)] = queue
             self.launches += 1
             key = variant_name(opts, tiles is not None)
             self.launches_by_variant[key] = self.launches_by_variant.get(key, 0) + 1
@@ -1673,6 +1897,7 @@ class Megakernel:
                 env.height if env_mode else 0, env.width if env_mode else 0,
                 ptr(suns), env.num_suns if env_mode == 3 else 0, ptr(sh),
                 int(opts.bg_external),
+                queue.data_ptr(), dptr(work), dptr(owners),
                 stream,
             )
         if err != 0:
@@ -1699,6 +1924,28 @@ def variant_name(opts: KernelOptions, tiles: bool = False) -> str:
 
 
 KERNEL = Megakernel()
+# the counting build: the same kernel, adding up its bounce loop's warp work
+COUNTING = Megakernel(NVCC_FLAGS + ("-DPT_MEGA_COUNT",))
+# the counting build's counters: warp iterations of the bounce loop, active
+# lane-iterations in them, iterations that ran both draw branches
+WORK = ("warp_iters", "lane_iters", "both_draws")
+# the kernel's schedule, as warp_schedule names it
+SCHEDULE = "regen"
+
+
+def kernel_warp_work(packed: PackedScene, opts: KernelOptions, seed: int, iter_base: int,
+                     num_samples: int, device, **kwargs) -> Tuple[dict, np.ndarray]:
+    """One launch of the counting build (:data:`COUNTING`, the other
+    arguments as :class:`Megakernel` takes them): its counts by
+    :data:`WORK`, and the warp that took each chunk of 32 pixels (int32
+    [ceil(N/32)]), for :func:`warp_schedule`."""
+    tiles = kwargs.get("tiles")
+    n = tiles[1].shape[0] if tiles is not None else packed.width * packed.height
+    work = torch.zeros(len(WORK), dtype=torch.int64, device=device)
+    owners = torch.full(((n + 31) // 32,), -1, dtype=torch.int32, device=device)
+    COUNTING(packed, opts, seed, iter_base, num_samples, device, work=work, owners=owners,
+             **kwargs)
+    return dict(zip(WORK, (int(v) for v in work.tolist()))), owners.cpu().numpy()
 
 
 def _add_background(rad: torch.Tensor, packed: PackedScene, opts: KernelOptions,

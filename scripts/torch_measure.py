@@ -2,7 +2,26 @@
 """Measure the PyTorch/CUDA port's kernels on one CUDA card.
 
     python3 scripts/torch_measure.py [--out build/torch_measure.json]
-        [--legs megakernel,mesh,mesh-kernels,mesh-host]
+        [--legs megakernel,schedule,mesh,mesh-kernels,mesh-host] [--parent DIR]
+
+With ``--parent DIR`` (a parent commit's checkout, e.g. unpacked with git
+archive into a git-ignored directory), the megakernel leg first compares
+that checkout's package with this one in one process, in turns (parent,
+change, change, parent): one 50-sample launch of every timed variant (K1
+main, antialiased and independent, K1b glass + lens + NEE and throughput,
+K2, K3-K5, K6 over 16 tiles, with and without the environment; the median
+of 20 each) and whether the two outputs are bit-identical, then the main
+path's rays/s (render(1000), two laps a turn) and whether the two images
+are bit-identical.
+
+The schedule leg (``--legs schedule``, not in the default): the megakernel's
+counting build (warp iterations of the bounce loop, active lane-iterations,
+iterations that ran both draw branches) against megakernel.warp_schedule's
+emulation on the plain version's path lengths, for the main configuration,
+glass + lens + NEE and the exact environment (env_spheres.txt), one
+50-sample launch at 800×800; then a census of
+the main variant's SASS (cuobjdump -sass) by instruction class, for the
+function and each loop in it, and nvcc's ptxas report.
 
 The megakernel legs (``--legs megakernel``), all at 800×800 on
 scenes/cornell.txt, depth 8, seed 0; times from CUDA events, each kernel row
@@ -84,11 +103,15 @@ Prints the readings as one JSON object and writes it to --out.
 
 import argparse
 import dataclasses
+import importlib
+import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -238,12 +261,18 @@ def measure_mesh(device, out):
 NO_BOUNDS = mesh.MeshKernel(build.NVCC_FLAGS + ("-DPT_MESH_BOUNDS=",))
 
 
+def ptxas_lines_of(build_module, kernel):
+    """nvcc's register and spill lines for ``kernel``'s build by
+    ``build_module`` (this checkout's ops.cuda.build or a parent's)."""
+    text = build_module.log_path(kernel.name, kernel.flags).read_text()
+    return [line.strip() for line in text.splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line]
+
+
 def ptxas_lines(kernel):
     """nvcc's register and spill lines for ``kernel``'s build."""
     kernel._fn()
-    text = build.log_path(kernel.name, kernel.flags).read_text()
-    return [line.strip() for line in text.splitlines()
-            if "registers" in line or "spill" in line or "Compiling entry" in line]
+    return ptxas_lines_of(build, kernel)
 
 
 def measure_mesh_kernels(device, out):
@@ -348,6 +377,104 @@ def measure_mesh_host(device, out):
     print(json.dumps(host, indent=1), flush=True)
 
 
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+SASS_CLASSES = (
+    ("local", ("LDL", "STL")),
+    ("global", ("LDG", "STG", "RED", "ATOM", "ATOMG")),
+    ("ldc", ("LDC", "ULDC")),
+    ("mufu", ("MUFU",)),
+    ("fp32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK", "FRND", "FSWZADD")),
+    ("convert", ("I2F", "F2I", "F2F", "I2FP", "F2IP")),
+    ("control", ("BRA", "BRX", "JMP", "JMX", "CALL", "RET", "EXIT", "BSSY", "BSYNC", "BREAK",
+                 "WARPSYNC", "BMOV", "NOP", "YIELD", "VOTE", "VOTEU")),
+)
+
+
+def sass_class(opcode):
+    base = opcode.split(".")[0]
+    for name, ops in SASS_CLASSES:
+        if base in ops:
+            return name
+    if base.startswith("U"):
+        return "uniform"
+    if base in ("MOV", "SHFL", "S2R", "S2UR", "CS2R", "P2R", "R2P", "PLOP3", "SEL", "PRMT"):
+        return "move"
+    return "int"
+
+
+def sass_census(lib_path, function_re):
+    """Instruction classes of one function of a built library (cuobjdump
+    -sass): the whole function, and each loop (a backward branch's range),
+    with how many instructions read a constant-bank operand."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    body, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = re.search(function_re, line) is not None
+            continue
+        m = SASS_LINE.search(line) if inside else None
+        if m:
+            body.append((int(m.group(1), 16), m.group(2), m.group(3)))
+
+    def census(rows):
+        out = {"total": len(rows), "const_operand": sum("c[0x" in r[2] for r in rows)}
+        for _, op, _ in rows:
+            out[sass_class(op)] = out.get(sass_class(op), 0) + 1
+        return out
+
+    loops = []
+    for addr, op, rest in body:
+        t = re.search(r"0x([0-9a-f]+)", rest)
+        if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+            lo = int(t.group(1), 16)
+            inside_loop = [r for r in body if lo <= r[0] <= addr]
+            loops.append(dict(start=lo, end=addr, **census(inside_loop)))
+    return dict(function=census(body), loops=loops)
+
+
+def measure_schedule(device, out):
+    """The bounce loop's warp schedule: the counting build against
+    warp_schedule on the plain version's path lengths, main, glass + lens +
+    NEE and exact environment, one 50-sample launch at 800x800; the main
+    variant's SASS census."""
+    cornell = Scene.from_desc(load_scene_desc(os.path.join(REPO, "scenes", "cornell.txt")), device)
+    text = open(os.path.join(REPO, "scenes", "cornell_glass.txt")).read()
+    glass = Scene.from_desc(parse_scene(text.replace("LOOKAT", "APERTURE    0.3\nLOOKAT", 1)),
+                            device)
+    env = Scene.from_desc(load_scene_desc(os.path.join(REPO, "scenes", "env_spheres.txt")),
+                          device)
+    cases = {
+        "main": (cornell, RenderConfig(sampler="sobol")),
+        "glass_dof_nee": (glass, RenderConfig(enable_refraction=True, dof=True, nee=True,
+                                              sampler="sobol")),
+        "env_exact": (env, RenderConfig()),
+    }
+    for name, (sc, cfg) in cases.items():
+        opts = mk.kernel_options(cfg, sc)
+        pk = mk.pack_scene(sc, nee=opts.nee, config=cfg)
+        pix = torch.arange(pk.width * pk.height, device=device)
+        counted, owners = mk.kernel_warp_work(pk, opts, SEED, 1, CHUNK, device)
+        st = {}
+        mk.render_samples_reference(pix, pk, opts, SEED, 1, CHUNK, stats=st)
+        steps, draws = mk.path_lengths(st)
+        row = dict(counted=counted, steps_per_path=float(steps.mean()),
+                   one_step_paths=float((steps == 1).mean()))
+        for sched in dict.fromkeys(("thread", mk.SCHEDULE)):
+            em = mk.warp_schedule(steps, draws, sched, **mk.schedule_args(opts),
+                                  owners=owners if sched == mk.SCHEDULE else None)
+            row[sched] = {k: em[k] for k in mk.WORK + ("efficiency", "settle_iters", "repeated")}
+        row["counted_efficiency"] = counted["lane_iters"] / (32 * counted["warp_iters"])
+        row["equal"] = all(counted[k] == row[mk.SCHEDULE][k] for k in mk.WORK)
+        out[f"schedule_{name}"] = row
+        print(name, json.dumps(row), flush=True)
+    lib = build.build(mk.KERNEL.name, mk.KERNEL.flags)
+    out["sass_main"] = sass_census(lib, r"pt_megakernelILb0ELb0ELb0ELb0ELb0ELi0E")
+    print("sass main", json.dumps(out["sass_main"]), flush=True)
+    out["ptxas"] = build.log_path(mk.KERNEL.name, mk.KERNEL.flags).read_text()
+
+
 def smi(query):
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -358,11 +485,18 @@ def smi(query):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(REPO, "build", "torch_measure.json"))
+    ap.add_argument("--parent", default=None,
+                    help="a parent checkout's root (git archive): the megakernel leg then "
+                         "times its kernel and main path against this one's, in turns")
+    ap.add_argument("--ab-flags", default="",
+                    help="with --parent: ';'-separated sets of extra nvcc flags, each a further "
+                         "build of this checkout's megakernel in the A/B turns")
     ap.add_argument("--legs", default="megakernel,mesh",
-                    help="comma-separated: megakernel, mesh, mesh-kernels, mesh-host")
+                    help="comma-separated: megakernel, ab (the A/B alone, with --parent), "
+                         "schedule, mesh, mesh-kernels, mesh-host")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
-    if not legs or legs - {"megakernel", "mesh", "mesh-kernels", "mesh-host"}:
+    if not legs or legs - {"megakernel", "ab", "schedule", "mesh", "mesh-kernels", "mesh-host"}:
         ap.error(f"unknown legs {args.legs!r}")
     if not torch.cuda.is_available():
         print("torch_measure: no CUDA device available", file=sys.stderr)
@@ -370,6 +504,13 @@ def main() -> int:
     device = torch.device("cuda", 0)
     out = {"card": smi("name,power.limit"), "torch": torch.__version__,
            "cuda": torch.version.cuda}
+    if "schedule" in legs:
+        measure_schedule(device, out)
+    if ("megakernel" in legs or "ab" in legs) and args.parent:
+        extra = [tuple(f.split()) for f in args.ab_flags.split(";") if f.strip()]
+        measure_ab(device, out, args.parent, extra)
+    elif "ab" in legs:
+        ap.error("the ab leg needs --parent")
     if "megakernel" in legs:
         measure_megakernel(device, out)
     if "mesh" in legs:
@@ -386,6 +527,140 @@ def main() -> int:
     with open(args.out, "w") as f:
         f.write(text + "\n")
     return 0
+
+
+PACKAGE = "cosc_4397_pathtracing_raytracing_project_tpu_torch"
+
+
+def load_package(root, alias):
+    """The port's package from another checkout at ``root`` (a git archive
+    of a parent commit), imported as ``alias`` beside this one; its kernels
+    build from its own csrc/ into its own build/."""
+    init = os.path.join(root, PACKAGE, "__init__.py")
+    spec = importlib.util.spec_from_file_location(
+        alias, init, submodule_search_locations=[os.path.dirname(init)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def variant_launchers(pkg, device, kernel=None):
+    """One 50-sample launch of each timed kernel variant, built with the
+    package ``pkg`` (this checkout's or a parent's) or with its ``kernel``
+    binding, keyed by name."""
+    kmod = importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel")
+    kernel = kernel or kmod.KERNEL
+    layout = importlib.import_module(pkg.__name__ + ".render.adaptive").make_tile_layout
+
+    def scene(name, aperture=None):
+        text = open(os.path.join(REPO, "scenes", name)).read()
+        if aperture is not None:  # as the CLI's --aperture: focal stays auto
+            text = text.replace("LOOKAT", f"APERTURE    {aperture}\nLOOKAT", 1)
+        return pkg.Scene.from_desc(pkg.parse_scene(text, base_dir=os.path.join(REPO, "scenes")),
+                                   device)
+
+    cornell, golden = scene("cornell.txt"), scene("cornell_golden.txt")
+    env = scene("env_spheres.txt")
+    cfg = pkg.RenderConfig
+    gpx, gpy, _, _ = layout(800, 800)
+    ids = torch.arange(0, 16 * 20, 20, dtype=torch.int32, device=device)
+    bases = 1 + 7 * torch.arange(16, dtype=torch.int32, device=device)
+    tiles = (torch.cat([ids, bases]),
+             torch.as_tensor(gpx, device=device)[ids.long()].reshape(-1).contiguous(),
+             torch.as_tensor(gpy, device=device)[ids.long()].reshape(-1).contiguous())
+    cases = {
+        "K1 main": (cornell, cfg(sampler="sobol"), None),
+        "K1 aa": (cornell, cfg(sampler="sobol", antialias=True), None),
+        "K1 independent": (cornell, cfg(), None),
+        "K1b glass_dof_nee": (scene("cornell_glass.txt", 0.3), cfg(
+            enable_refraction=True, dof=True, nee=True, sampler="sobol"), None),
+        "K1b throughput": (cornell, cfg(gather_mode="throughput"), None),
+        "K2 nee_aa": (golden, cfg(nee=True, antialias=True, sampler="sobol"), None),
+        "K3 exact": (env, cfg(), None),
+        "K3 exact_sobol": (env, cfg(sampler="sobol"), None),
+        "K3 exact_refraction": (env, cfg(enable_refraction=True), None),
+        "K4 env_nee": (env, cfg(nee=True), None),
+        "K5 split": (env, cfg(env_mode="split"), None),
+        "K5 split_aa": (env, cfg(env_mode="split", antialias=True), None),
+        "K6 tiles16": (golden, cfg(nee=True, sampler="sobol"), tiles),
+        "K6 env_tiles16": (env, cfg(sampler="sobol"), tiles),
+    }
+    launchers = {}
+    for name, (sc, config, tl) in cases.items():
+        opts = kmod.kernel_options(config, sc)
+        pk = kmod.pack_scene(sc, nee=opts.nee, config=config)
+        rows = None
+        if opts.env_nee:
+            rows = kmod.build_env_nee_rows(sc.envmap, SEED, 1, CHUNK, opts.trace_depth)
+        if tl is None:
+            launchers[name] = (lambda pk=pk, opts=opts, rows=rows: kernel(
+                pk, opts, SEED, 1, CHUNK, device, env_rows=rows))
+        else:
+            launchers[name] = (lambda pk=pk, opts=opts, tl=tl: kernel(
+                pk, opts, SEED, 0, CHUNK, device, tiles=tl))
+    return launchers
+
+
+def measure_ab(device, out, parent_root, extra_flags=()):
+    """The kernel variants and the main path, this checkout against the
+    parent's package at ``parent_root``, in turns (parent, change, change,
+    parent): each variant's 50-sample launch (median of 20) and bit identity
+    of the two outputs; the main path's rays/s (render(1000) after a warm-up
+    step, two laps a turn). Each of ``extra_flags`` (a tuple of nvcc flags)
+    adds a build of this checkout's kernel with those flags to the variants'
+    turns (parent, change, extra builds, then back in reverse order), with
+    its ptxas registers and spills."""
+    pkgs = {"parent": load_package(parent_root, "parent_pkg"),
+            "change": sys.modules[PACKAGE]}
+    kernels = {side: importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel").KERNEL
+               for side, pkg in pkgs.items()}
+    for flags in extra_flags:
+        kernels[" ".join(flags)] = mk.Megakernel(build.NVCC_FLAGS + tuple(flags))
+    build_modules = {"parent": importlib.import_module("parent_pkg.ops.cuda.build")}
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:  # one nvcc each, together
+        builds = [pool.submit(build_modules.get(side, build).build, k.name, k.flags)
+                  for side, k in kernels.items()]
+        for b in builds:
+            b.result()
+    out["ab_ptxas"] = {side: [line for line in ptxas_lines_of(build_modules.get(side, build), k)
+                              if "registers" in line or "spill" in line]
+                       for side, k in kernels.items()}
+    launchers = {side: variant_launchers(pkgs.get(side, pkgs["change"]), device, k)
+                 for side, k in kernels.items()}
+    sides = list(kernels)
+    turns = sides + sides[::-1]
+    rows = {}
+    for name in launchers["change"]:
+        want = launchers["parent"][name]()
+        same = {side: torch.equal(want, launchers[side][name]()) for side in sides[1:]}
+        times = {side: [] for side in sides}
+        for side in turns:
+            times[side].append(time_launches(launchers[side][name], REPS)["median"])
+        rows[name] = dict(ms=times, bit_identical=same)
+        print(f"ab {name}: " + "; ".join(f"{side} {times[side]}" for side in sides)
+              + f" ms; bit-identical {same}", flush=True)
+    out["ab_variants"] = rows
+    renderers = {
+        side: pkg.Renderer(os.path.join(REPO, "scenes", "cornell.txt"),
+                           pkg.RenderConfig(samples_per_launch=200, sampler="sobol"),
+                           device=device)
+        for side, pkg in pkgs.items()
+    }
+    for r in renderers.values():
+        r.step(200)
+    laps = {side: [] for side in pkgs}
+    for side in ("parent", "change", "change", "parent") * 2:
+        r = renderers[side]
+        r.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render(1000)
+        laps[side].append(r.scene.camera.pixel_count * 1000 / (time.perf_counter() - t0))
+    same = bool(np.array_equal(renderers["parent"].linear_image(),
+                               renderers["change"].linear_image()))
+    out["ab_main_rays_per_s"] = dict(laps, bit_identical=same)
+    print(f"ab main path rays/s: {json.dumps(laps)}; images bit-identical {same}", flush=True)
 
 
 def measure_megakernel(device, out):

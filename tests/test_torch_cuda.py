@@ -624,6 +624,109 @@ def test_cuda_adaptive_renderer_runs_the_tile_kernel(cuda):
     assert img.shape == (128, 128, 3) and np.isfinite(img).all() and img.mean() > 0
 
 
+# ── the pixel queue and path regeneration: bit for bit ──
+
+# (resolution, config, num_samples): frames that fill no whole warp or block,
+# and the shortest and the main path's launches
+QUEUE_CASES = {
+    "1850-px-sobol": ((50, 37), dict(sampler="sobol"), 2),
+    "20-px-aa": ((5, 4), dict(antialias=True), 2),
+    "1-sample": ((64, 64), dict(sampler="sobol"), 1),
+    "50-samples": ((64, 64), dict(sampler="sobol"), 50),
+    "50-samples-glass-dof-nee": ((64, 64), dict(enable_refraction=True, dof=True, nee=True,
+                                                sampler="sobol"), 50),
+}
+
+
+def _queue_scene(res, config, device):
+    name = "cornell_glass.txt" if config.get("dof") else "cornell.txt"
+    text = open(os.path.join(_SCENES, name)).read()
+    text = text.replace("RES         800 800", f"RES         {res[0]} {res[1]}")
+    if config.get("dof"):
+        text = with_aperture(text)
+    scene = Scene.from_desc(parse_scene(text), device)
+    opts = tmk.kernel_options(RenderConfig(**config))
+    return scene, opts, tmk.pack_scene(scene, nee=opts.nee)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(QUEUE_CASES))
+def test_cuda_queue_matches_plain_version_bit_for_bit(case, cuda):
+    res, config, samples = QUEUE_CASES[case]
+    scene, opts, packed = _queue_scene(res, config, cuda)
+    got = tmk.KERNEL(packed, opts, 7, 3, samples, cuda)
+    pix = torch.arange(scene.camera.pixel_count, device=cuda)
+    want = tmk.render_samples_reference(pix, packed, opts, 7, 3, samples)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_queue_matches_plain_version_bit_for_bit(cuda):
+    """K6 through the queue: 4 tiles (one repeated) with distinct bases."""
+    scene, _ = _option_scene("nee-aa-sobol", cuda)
+    config = RenderConfig(nee=True, sampler="sobol")
+    packed = tmk.pack_scene(scene, nee=True)
+    ids = torch.tensor([1, 0, 1, 3], dtype=torch.int32, device=cuda)
+    bases = torch.tensor([1, 5, 9, 3], dtype=torch.int32, device=cuda)
+    flat = torch.as_tensor(np.random.default_rng(5).integers(0, 64 * 64, 4 * tmk.TILE),
+                           device=cuda)
+    px = (flat % 64).to(torch.float32)
+    py = (flat // 64).to(torch.float32)
+    got = tmk.render_tiles(scene, config, 7, ids, bases, px, py, 3, packed=packed)
+    want = tmk.render_tiles_reference(px, py, ids, bases, packed, tmk.kernel_options(config), 7, 3)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_queue_resets_between_launches_and_streams(cuda):
+    """Two launches in a row on one stream, then launches on two streams at
+    once: each zeroes its own stream's queue first, so each renders every
+    pixel of its frame."""
+    a, opts_a, pk_a = _queue_scene((64, 64), dict(sampler="sobol"), cuda)
+    b, opts_b, pk_b = _queue_scene((50, 37), dict(antialias=True), cuda)
+    want_a = tmk.render_samples_reference(
+        torch.arange(a.camera.pixel_count, device=cuda), pk_a, opts_a, 7, 1, 4)
+    want_b = tmk.render_samples_reference(
+        torch.arange(b.camera.pixel_count, device=cuda), pk_b, opts_b, 7, 1, 4)
+    first = tmk.KERNEL(pk_a, opts_a, 7, 1, 4, cuda)
+    second = tmk.KERNEL(pk_a, opts_a, 7, 1, 4, cuda)
+    assert torch.equal(first, want_a) and torch.equal(second, want_a)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize(cuda)
+    outs = []
+    for _ in range(3):
+        with torch.cuda.stream(streams[0]):
+            outs.append(("a", tmk.KERNEL(pk_a, opts_a, 7, 1, 4, cuda)))
+        with torch.cuda.stream(streams[1]):
+            outs.append(("b", tmk.KERNEL(pk_b, opts_b, 7, 1, 4, cuda)))
+    torch.cuda.synchronize(cuda)
+    for which, out in outs:
+        assert torch.equal(out, want_a if which == "a" else want_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["1850-px-sobol", "50-samples-glass-dof-nee"])
+def test_cuda_counting_build_equals_the_warp_schedule(case, cuda):
+    """The counting build's warp iterations, lane-iterations and both-branch
+    iterations equal warp_schedule's replay of the warps it recorded, on the
+    plain version's path lengths; its output is the production build's."""
+    res, config, samples = QUEUE_CASES[case]
+    scene, opts, packed = _queue_scene(res, config, cuda)
+    counted, owners = tmk.kernel_warp_work(packed, opts, 7, 3, samples, cuda)
+    stats = {}
+    pix = torch.arange(scene.camera.pixel_count, device=cuda)
+    tmk.render_samples_reference(pix, packed, opts, 7, 3, samples, stats=stats)
+    steps, draws = tmk.path_lengths(stats)
+    want = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, **tmk.schedule_args(opts),
+                             owners=owners)
+    assert counted == {k: want[k] for k in tmk.WORK}
+    assert (want["visits"] == 1).all() and want["in_order"]
+    work = torch.zeros(len(tmk.WORK), dtype=torch.int64, device=cuda)
+    own = torch.full_like(torch.as_tensor(owners, device=cuda), -1)
+    got = tmk.COUNTING(packed, opts, 7, 3, samples, cuda, work=work, owners=own)
+    assert torch.equal(got, tmk.KERNEL(packed, opts, 7, 3, samples, cuda))
+
+
 # ── the mesh kernels K7/K8 and the mesh pipeline ──
 
 _MESH = os.path.join(_SCENES, "mesh1080p.txt")
