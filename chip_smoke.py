@@ -30,7 +30,12 @@ Phases, in order; any failure raises and exits non-zero:
    independent, antialias, (e) sphere.txt with early_exit (also
    bit-identical to early_exit off), (f) throughput on cornell.txt, (g) the
    tile dispatch over 16 tiles with distinct iteration bases; one 50-sample
-   launch of kernel and plain version for (a), (c) and (g);
+   launch of kernel and plain version for (a), (c) and (g); for (a), K2's
+   case, the visibility rays of that launch: the counting build's light rays
+   against the plain version's (equal, digit for digit), all its counters
+   against the emulation (equal), the visibility loop's SIMT efficiency, and
+   the launch's bound with the rays traced alone beside the bound of the
+   design (sun rays share the trace of the next ray from their vertex);
 7. quality leg: golden + NEE, 1000 spp: PSNR (floor 36.5 dB and above phase
    4's 1000-spp PSNR), rays/s, and channel means between phase 4's at
    depth 8 and the same leg's at depth 9, within 1%: NEE at the last
@@ -46,7 +51,9 @@ Phases, in order; any failure raises and exits non-zero:
    2 spp, same tolerance: exact (independent, sobol, refraction), env NEE,
    split with the background composited outside (no antialiasing) and
    without it (antialias), and the tile dispatch with exact env over 16
-   tiles; then one 50-sample launch of kernel and plain version of each;
+   tiles; then one 50-sample launch of kernel and plain version of each,
+   and for env NEE (K4) and the split composite (K5) the visibility rays of
+   that launch as phase 6 reports K2's;
 11. environment legs: Renderer(env_spheres) render(1000) in exact, exact +
    nee (env NEE) and split mode, rays/s and launches each;
 12. furnace on the card: a constant map c over a diffuse sphere of albedo
@@ -140,16 +147,29 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # float operations (add, sub, mul, div, sqrt, min/max, sin/cos as one each;
 # compares, selects and integer hashing not counted) per unit of work, read
-# off csrc/megakernel.cu: the object-space ray of a geom (axis-aligned /
-# general transform), a cube's slab test and a sphere's quadratic with their
-# normals, the winner's normalize, one scatter (frame, direction, hit point,
-# throughput), and NEE's light sample + MIS beside the shadow ray's
-# per-geom tests.
-FLOPS_RAY = {True: 9, False: 33}
+# off csrc/megakernel.cu: the object-space origin and direction of a geom
+# (axis-aligned / general transform), a cube's slab test and a sphere's
+# quadratic with their normals (the slab offsets -0.5 - q_o, 0.5 - q_o and
+# the sphere's c = |q_o|^2 - 0.25 included), the winner's normalize, one
+# scatter (frame, direction, hit point, throughput), and NEE's light sample +
+# MIS beside the shadow ray's per-geom tests. A sun ray rides in the trace of
+# the ray that next leaves its vertex, so it shares that ray's origin
+# transform, slab offsets and c (and takes them alone where its vertex was
+# the path's last), and its direction and reciprocals (a sphere's |q_d|^2
+# and its reciprocal) come from a table computed once per launch: its own
+# work per geom is the rest of the test. A light or env ray is tested at its
+# vertex, on its own, each geom in full: its origin and direction transform
+# and the whole slab test or quadratic.
+FLOPS_ORIGIN = {True: 6, False: 18}
+FLOPS_DIR = {True: 3, False: 15}
+FLOPS_RAY = {a: FLOPS_ORIGIN[a] + FLOPS_DIR[a] for a in (True, False)}
 FLOPS_CUBE = {True: 29, False: 46}
 FLOPS_SPHERE = {True: 40, False: 52}
-FLOPS_SHADOW_CUBE = 26
-FLOPS_SHADOW_SPHERE = 28
+FLOPS_SHARED_CUBE = 6  # the slab offsets
+FLOPS_SHARED_SPHERE = 6  # c
+FLOPS_SHADOW_CUBE = 26  # with the shared offsets and 3 reciprocals
+FLOPS_SHADOW_SPHERE = 28  # with c, |q_d|^2 and its reciprocal
+FLOPS_SUN_TABLE = {"cube": 3, "sphere": 6}  # beyond the direction
 FLOPS_NORMALIZE = 11
 FLOPS_SCATTER = 70
 FLOPS_NEE = 75
@@ -232,33 +252,88 @@ def _golden_psnr(img, ref_img):
     return 10.0 * math.log10(1.0 / float(((mine - ref_img) ** 2).mean()))
 
 
-def _bound(packed, opts, work, out_bytes, in_bytes):
+def _bound(packed, opts, work, out_bytes, in_bytes, shared=True):
     """(bound_ms, bound_by): the larger of this launch's float operations
     over the card's float32 peak and its bytes (each input read once, each
     output written once) over its memory rate. ``work`` holds the plain
-    version's counts for the same inputs (megakernel._trace_batch)."""
-    aligned = [int(packed.perm[3 * k]) >= 0 for k in range(packed.num_geoms)]
+    version's counts for the same inputs (megakernel._trace_batch). With
+    ``shared`` the sun rays count the work of the kernel's design (see
+    FLOPS_ORIGIN); without it, a full origin and direction transform and
+    test of their own at every geom (the rays traced alone)."""
+    import numpy as np
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+
+    geoms = [(int(packed.perm[3 * k]) >= 0, k < packed.num_cubes)
+             for k in range(packed.num_geoms)]
     isect = FLOPS_NORMALIZE + sum(
-        FLOPS_RAY[a] + (FLOPS_CUBE[a] if k < packed.num_cubes else FLOPS_SPHERE[a])
-        for k, a in enumerate(aligned)
-    )
+        FLOPS_RAY[a] + (FLOPS_CUBE[a] if cube else FLOPS_SPHERE[a]) for a, cube in geoms)
     occlusion = sum(
-        FLOPS_RAY[a] + (FLOPS_SHADOW_CUBE if k < packed.num_cubes else FLOPS_SHADOW_SPHERE)
-        for k, a in enumerate(aligned)
-    )
+        FLOPS_RAY[a] + (FLOPS_SHADOW_CUBE if cube else FLOPS_SHADOW_SPHERE) for a, cube in geoms)
+    sun_occlusion = occlusion
+    extra = 0
+    if shared and opts.env == "split":
+        sun_occlusion = sum(FLOPS_SHADOW_CUBE - FLOPS_SHARED_CUBE - 3 if cube else
+                            FLOPS_SHADOW_SPHERE - FLOPS_SHARED_SPHERE - 6 for _a, cube in geoms)
+        extra = packed.env.num_suns * sum(FLOPS_DIR[a] + FLOPS_SUN_TABLE["cube" if cube else
+                                                                         "sphere"]
+                                          for a, cube in geoms)
+        # the sun rays of a path's last vertex take an origin transform of
+        # their own
+        vis = mk.path_visibility(work)
+        steps, _ = mk.path_lengths(work)
+        last = int(((vis["sun"] >> np.maximum(steps - 1, 0)) & 1).sum())
+        extra += last * sum(FLOPS_ORIGIN[a] + (FLOPS_SHARED_CUBE if cube else
+                                               FLOPS_SHARED_SPHERE) for a, cube in geoms)
     flops = (
         int(work.get("isect", 0)) * isect
         + int(work.get("scatter", 0)) * FLOPS_SCATTER
         + int(work.get("shadow", 0)) * (FLOPS_NEE + occlusion)
         + int(work.get("env_shadow", 0)) * (FLOPS_ENV_NEE + occlusion)
-        + int(work.get("sun_shadow", 0)) * (FLOPS_SUN + occlusion)
+        + int(work.get("sun_shadow", 0)) * (FLOPS_SUN + sun_occlusion)
         + int(work.get("env_lookup", 0)) * FLOPS_ENV_LOOKUP
         + int(work.get("env_pdf", 0)) * FLOPS_ENV_PDF
         + int(work.get("sh", 0)) * FLOPS_SH9
+        + extra
     )
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = (out_bytes + in_bytes) / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _visibility(what, pk, opts, device, seed, n, stats, old_bound, new_bound):
+    """The visibility rays of one n-sample launch (iterations from 1): the
+    counting build's rays of each kind against the plain version's
+    ``stats`` (equal, digit for digit) and its counters against
+    warp_schedule's emulation on the plain version's paths (equal); prints
+    them with the visibility loop's SIMT efficiency of each kind (lanes
+    carrying a ray over 32 times the warp iterations carrying one) and the
+    launch's bound with the rays traced alone beside the design's."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+
+    counted, owners = mk.kernel_warp_work(pk, opts, seed, 1, n, device)
+    plain = {"light_rays": int(stats.get("shadow", 0)), "env_rays": int(stats.get("env_shadow", 0)),
+             "sun_rays": int(stats.get("sun_shadow", 0))}
+    steps, draws = mk.path_lengths(stats)
+    em = mk.warp_schedule(steps, draws, mk.SCHEDULE, **mk.schedule_args(opts), owners=owners,
+                          vis=mk.path_visibility(stats))
+    simt = {kind: round((counted["sun_lanes"] if kind == "sun" else counted[f"{kind}_rays"])
+                        / (32 * counted[f"{kind}_warps"]), 4)
+            for kind in ("light", "env", "sun") if counted[f"{kind}_warps"]}
+    print(f"  {what}: visibility rays, counting build {[counted[k] for k in plain]} (light, env, "
+          f"sun), plain version {list(plain.values())}; warp iterations carrying them "
+          f"{[counted[k] for k in ('light_warps', 'env_warps', 'sun_warps')]}, SIMT efficiency "
+          f"{simt}, sun rays a lane {counted['sun_rays'] / max(counted['sun_lanes'], 1):.3f}; "
+          f"steps added for the last vertex's rays {em['added']}; loop SIMT efficiency "
+          f"{counted['lane_iters'] / (32 * counted['warp_iters']):.4f}; counting build = emulation "
+          f"{counted == {k: em[k] for k in mk.WORK}}; bound {old_bound[0]:.4f} ms as counted "
+          f"with the rays traced alone, {new_bound[0]:.4f} ms with the design's shared work "
+          f"({new_bound[1]})")
+    if any(counted[k] != v for k, v in plain.items()):
+        raise AssertionError(f"{what}: the counting build's visibility rays differ from the plain "
+                             "version's")
+    if counted != {k: em[k] for k in mk.WORK}:
+        raise AssertionError(f"{what}: the counting build's counts differ from the emulation's")
 
 
 def _ptxas_report(log_text):
@@ -565,6 +640,11 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
         rows = chunk * opts.trace_depth * 32 if opts.env_nee else 0
         times[what] = (k_ms, p_ms, _bound(pk, opts, w, pix.numel() * 12,
                                           env_bytes(pk) + rows))
+        if what in ("env NEE", "split composite"):  # K4, K5
+            _visibility(what, pk, opts, device, seed, chunk, w,
+                        _bound(pk, opts, w, pix.numel() * 12, env_bytes(pk) + rows, shared=False),
+                        times[what][2])
+        del w
         print(f"  {what}: one {chunk}-sample launch: kernel {k_ms:.3f} ms, plain version "
               f"{p_ms:.1f} ms; bound {times[what][2][0]:.4f} ms ({times[what][2][1]})")
         if opts.env_nee:
@@ -812,7 +892,7 @@ def main() -> int:
     counted, owners = mk.kernel_warp_work(packed, opts, seed, 1, chunk, device)
     steps, draws = mk.path_lengths(work)
     emulated = mk.warp_schedule(steps, draws, mk.SCHEDULE, **mk.schedule_args(opts),
-                                owners=owners)
+                                owners=owners, vis=mk.path_visibility(work))
     today = mk.warp_schedule(steps, draws, "thread")
     print(f"  bounce loop, counting build: {counted}, SIMT efficiency "
           f"{counted['lane_iters'] / (32 * counted['warp_iters']):.4f}; emulation "
@@ -959,6 +1039,10 @@ def main() -> int:
         w = {}
         mk.render_samples_reference(pix, pk, opts, seed, 1, chunk, stats=w)
         times[key] = (k_ms, p_ms, _bound(pk, opts, w, pix.numel() * 12, 0))
+        if key == "a":  # K2
+            _visibility("a (K2)", pk, opts, device, seed, chunk, w,
+                        _bound(pk, opts, w, pix.numel() * 12, 0, shared=False), times[key][2])
+        del w
     k_ms = _time_ms(lambda: tiles_kernel(chunk), reps=3)
     p_ms = _time_ms(lambda: tiles_plain(chunk), reps=1)
     w = {}

@@ -27,16 +27,21 @@
 //     strength-folded map (device memory, 393 KB for the 128x256 meadow
 //     map, resident in L2; plain global loads, no texture unit, whose
 //     bilinear weights have 8 fractional bits) settles each sample;
-//   2 exact + env NEE (K4): also, at every diffuse vertex, a shadow ray to
-//     the (iteration, depth) row's shared alias-sampled direction (a device
-//     table [num_samples * trace_depth, 8] that the wrapper builds before the
-//     launch; each lane reads the row of its own sample and depth, so one
-//     load instruction of a warp may read many rows, served from L1/L2),
-//     weighted by the balance heuristic, and the escape weighted against the
-//     sampler's nearest-texel pdf;
-//   3 split (K5): delta suns (one shadow ray each at every diffuse vertex)
-//     and an SH-9 residual sky on misses; with bg_external the depth-0
-//     background is composited outside the kernel.
+//   2 exact + env NEE (K4): also, at every diffuse vertex, a visibility ray
+//     along the (iteration, depth) row's shared alias-sampled direction (a
+//     device table [num_samples * trace_depth, 8] that the wrapper builds
+//     before the launch; each lane reads the row of its own sample and
+//     depth, so one load instruction of a warp may read many rows, served
+//     from L1/L2), weighted by the balance heuristic, and the escape weighted
+//     against the sampler's nearest-texel pdf;
+//   3 split (K5): delta suns (a visibility ray toward each sun above the
+//     normal at every diffuse vertex) and an SH-9 residual sky on misses;
+//     with bg_external the depth-0 background is composited outside the
+//     kernel. The suns' object-space directions and their reciprocals do
+//     not depend on the vertex: each block computes them once per launch
+//     into a shared-memory table (6 floats a sun and geom, at most 48 KB:
+//     32 suns, 64 geoms), as the TPU kernel folds its compile-time sun
+//     directions into its per-geom transforms.
 // The valid set follows the JAX wrapper's raises: NEE excludes LEGACY; every
 // ENV excludes LEGACY; exact (1, 2) excludes analytic NEE; env NEE (2) and
 // split (3) exclude TILES.
@@ -61,10 +66,29 @@
 // another pixel when its own are done. With the primary hit hoisted, a path
 // that ends at its first vertex before any draw (a miss or an emitter) does
 // so in every sample: the lane settles all of them at once. The counting
-// build (-DPT_MEGA_COUNT) counts the loop's warp iterations and active lanes
-// and records which warp took each chunk; ops/cuda/megakernel.warp_schedule
-// replays that exactly on the plain version's path lengths.
+// build (-DPT_MEGA_COUNT) counts the loop's warp iterations, active lanes
+// and visibility rays and records which warp took each chunk;
+// ops/cuda/megakernel.warp_schedule replays that exactly on the plain
+// version's path lengths and visibility rays.
 //
+// Visibility rays. At a diffuse vertex NEE casts a ray toward a point on an
+// area light, env NEE one along its row's direction and the split one
+// toward each sun above the normal, all from the origin of the extension
+// ray. The light and env rays are traced there, each in its own loop over
+// the primitives (occluded_any). The sun rays are not: shading records the
+// mask of suns and the factors of their terms, and the next iteration's
+// trace tests them in the loop over the primitives that traces the
+// extension ray (trace), sharing its origin's transform, slab offsets and
+// c, with each sun's object-space direction and reciprocals read from the
+// launch's sun table; the terms are then added, suns 0 .. S-1, before
+// anything the next vertex adds. Each test keeps the float expressions of
+// the JAX kernel's occluded_any, a ray is occluded if any test says so, and
+// the sum adds in the plain version's order, so the output stays bit for
+// bit. A path whose last vertex (trace depth reached) cast sun rays tests
+// them in one more iteration of its own, then settles. Carried the same
+// way, in the trace's loop or by the whole warp at once, the light and env
+// rays measured slower on an H100 than traced at the vertex (PERF.md).
+
 // Random numbers are the same streams as the JAX package's interpret-mode
 // oracle: the LD lattice (_ld_shift, _sobol_scalar_pair, _lk, _ld_u01,
 // _ld_rev_components) keyed by the global pixel id, and everything else from
@@ -130,14 +154,20 @@
 // iterations of the bounce loop (work[0]), the lanes active in them
 // (work[1]) and the iterations in which both draw branches ran, the LD
 // branch on some lanes and the hash branch on others (work[2]): the SIMT
-// efficiency of the loop is work[1] / (32 work[0]). The production build
-// keeps none of it.
+// efficiency of the loop is work[1] / (32 work[0]). Then the visibility
+// rays: the warp iterations in which some lane tests an area-light ray
+// (work[3]), an env NEE ray (work[4]) or sun rays (work[5]), the lanes that
+// test sun rays in them (work[6]), and the rays of each kind, light, env and
+// sun (work[7..9]); a lane tests at most one light and one env ray an
+// iteration, so the light and env loops' SIMT efficiency is work[7] /
+// (32 work[3]) and work[8] / (32 work[4]). The production build keeps none
+// of it.
 #ifdef PT_MEGA_COUNT
 #define PT_MEGA_COUNTS true
 #else
 #define PT_MEGA_COUNTS false
 #endif
-#define PT_MEGA_WORK 3
+#define PT_MEGA_WORK 10
 // 7 resident blocks of PT_BLOCK threads an SM: at most 72 registers a
 // thread. Against the compiler's own choice (64-96 registers, no spill) this
 // measured 0-4% faster in every variant on an H100, though some variants
@@ -417,12 +447,86 @@ static __device__ __forceinline__ void object_ray(const SceneTables& sc, int k, 
   }
 }
 
-// Nearest hit over every primitive (megakernel.intersect_all): object-space
-// slab test for cubes, quadratic for spheres. With OUT, the hit also says
-// whether the nearest hit entered its primitive from outside.
-template <bool OUT>
-static __device__ HitT<OUT> intersect_all(const SceneTables& sc, float ox, float oy, float oz,
-                                          float dx, float dy, float dz) {
+// A visibility ray's test against one cube (megakernel.occluded_any's slab
+// branch): lo = -0.5 - q_o and hi = 0.5 - q_o, shared by every ray from
+// the origin, and the reciprocals of its object-space direction. Does the
+// cube block it at a backoff-adjusted t in (0, limit)?
+static __device__ __forceinline__ bool cube_blocks(float lox, float loy, float loz, float hix,
+                                                   float hiy, float hiz, float ix, float iy,
+                                                   float iz, float limit) {
+  const float t1x = lox * ix;
+  const float t2x = hix * ix;
+  const float t1y = loy * iy;
+  const float t2y = hiy * iy;
+  const float t1z = loz * iz;
+  const float t2z = hiz * iz;
+  float ax = jmin(t1x, t2x), ay = jmin(t1y, t2y), az = jmin(t1z, t2z);
+  float bx = jmax(t1x, t2x), by = jmax(t1y, t2y), bz = jmax(t1z, t2z);
+  ax = ax > 0.0f ? ax : -kFmax;
+  ay = ay > 0.0f ? ay : -kFmax;
+  az = az > 0.0f ? az : -kFmax;
+  bx = bx < kFmax ? bx : kFmax;
+  by = by < kFmax ? by : kFmax;
+  bz = bz < kFmax ? bz : kFmax;
+  const float s_min = jmax(ax, jmax(ay, az));
+  const float s_max = jmin(bx, jmin(by, bz));
+  const bool hit = (s_max >= s_min) && (s_max > 0.0f);
+  const float t_world = (s_min > 0.0f ? s_min : s_max) - kBackoff;
+  return hit && (t_world > 0.0f) && (t_world < limit);
+}
+
+// The same against one sphere (the quadratic branch): c = |q_o|^2 - 0.25
+// shared by every ray from the origin, the object-space direction, its
+// squared length and that length's reciprocal.
+static __device__ __forceinline__ bool sphere_blocks(float qox, float qoy, float qoz, float c,
+                                                     float qdx, float qdy, float qdz, float nq2,
+                                                     float inv_a, float limit) {
+  const float b = qox * qdx + qoy * qdy + qoz * qdz;
+  const float disc = b * b - nq2 * c;
+  const float sq = sqrtf(jmax(disc, 0.0f));
+  const float s1 = (-b + sq) * inv_a;
+  const float s2 = (-b - sq) * inv_a;
+  const bool both_neg = (s1 < 0.0f) && (s2 < 0.0f);
+  const bool both_pos = (s1 > 0.0f) && (s2 > 0.0f);
+  const bool hit = (disc >= 0.0f) && !both_neg;
+  const float t_world = (both_pos ? jmin(s1, s2) : jmax(s1, s2)) - kBackoff;
+  return hit && (t_world > 0.0f) && (t_world < limit);
+}
+
+// The sun rays a lane casts at a diffuse vertex, traced with the next ray
+// that leaves the vertex (see the note on visibility rays above): the mask
+// of suns above the normal (a bit set says the ray is cast and, after the
+// trace, unoccluded) and the factors of their terms, which the kernel
+// multiplies out in the vertex's own expressions: the post-roulette
+// throughput times the albedo, the diffuse probability and the normal.
+struct SunVis {
+  unsigned mask;
+  float pr, pg, pb, diffuse, nx, ny, nz;
+};
+struct NoSunVis {
+  unsigned mask;
+};
+template <int ENV>
+using SunVisT = typename std::conditional<ENV == 3, SunVis, NoSunVis>::type;
+
+// One loop over the primitives for a lane's rays from one origin: the
+// nearest hit of the extension ray (megakernel.intersect_all: object-space
+// slab test for cubes, quadratic for spheres; with OUT, whether the nearest
+// hit entered its primitive from outside) where ``ext`` is set, and with
+// SUNS the occlusion tests of the pending sun rays (megakernel.occluded_any:
+// any primitive with a backoff-adjusted t in (0, limit)), each in the same
+// float expressions as those functions. Each geom row is read once, and the
+// origin's object-space transform, a cube's slab offsets and a sphere's c are
+// computed once for all the rays. A sun ray's tests stop at its first
+// occluder; it reads its object-space direction and reciprocals from the
+// launch's table (tab[(k * num_suns + j) * 6], see fill_sun_table), and the
+// sun loop runs over the warp's union of pending sun masks (sun_union), so
+// every lane reads the same row.
+template <bool OUT, bool SUNS>
+static __device__ __forceinline__ HitT<OUT> trace(const SceneTables& sc, float ox, float oy,
+                                                  float oz, float dx, float dy, float dz,
+                                                  bool ext, unsigned& suns, const float* tab,
+                                                  int num_suns, unsigned sun_union) {
   float best_t = kMiss, bnx = 0.0f, bny = 0.0f, bnz = 0.0f;
   int best_mat = 0;
   bool best_out = true;
@@ -454,99 +558,124 @@ static __device__ HitT<OUT> intersect_all(const SceneTables& sc, float ox, float
       qdy = iv[4 + c1] * sel3(c1, dx, dy, dz);
       qdz = iv[8 + c2] * sel3(c2, dx, dy, dz);
     }
-    bool hit;
+    bool hit = false;
     bool hit_out = true;  // read only with OUT
-    float t_world, nox, noy, noz;
+    float t_world = 0.0f, nox = 0.0f, noy = 0.0f, noz = 0.0f;
     if (k < num_cubes) {
-      const float ix = 1.0f / qdx;
-      const float iy = 1.0f / qdy;
-      const float iz = 1.0f / qdz;
-      const float t1x = (-0.5f - qox) * ix;
-      const float t2x = (0.5f - qox) * ix;
-      const float t1y = (-0.5f - qoy) * iy;
-      const float t2y = (0.5f - qoy) * iy;
-      const float t1z = (-0.5f - qoz) * iz;
-      const float t2z = (0.5f - qoz) * iz;
-      const float tax = jmin(t1x, t2x), tbx = jmax(t1x, t2x);
-      const float tay = jmin(t1y, t2y), tby = jmax(t1y, t2y);
-      const float taz = jmin(t1z, t2z), tbz = jmax(t1z, t2z);
-      const float sgx = t2x < t1x ? 1.0f : -1.0f;
-      const float sgy = t2y < t1y ? 1.0f : -1.0f;
-      const float sgz = t2z < t1z ? 1.0f : -1.0f;
-      const float ax = tax > 0.0f ? tax : -kFmax;
-      const float ay = tay > 0.0f ? tay : -kFmax;
-      const float az = taz > 0.0f ? taz : -kFmax;
-      const float bx = tbx < kFmax ? tbx : kFmax;
-      const float by = tby < kFmax ? tby : kFmax;
-      const float bz = tbz < kFmax ? tbz : kFmax;
-      const float s_min = jmax(ax, jmax(ay, az));
-      const float s_max = jmin(bx, jmin(by, bz));
-      const bool min_is_x = (ax >= ay) && (ax >= az);
-      const bool min_is_y = !min_is_x && (ay >= az);
-      const bool max_is_x = (bx <= by) && (bx <= bz);
-      const bool max_is_y = !max_is_x && (by <= bz);
-      const bool outside = s_min > 0.0f;
-      hit = (s_max >= s_min) && (s_max > 0.0f);
-      const float sparam = outside ? s_min : s_max;
-      const bool use_x = (outside && min_is_x) || (!outside && max_is_x);
-      const bool use_y = (outside && min_is_y) || (!outside && max_is_y);
-      t_world = sparam - kBackoff;
-      if constexpr (OUT) hit_out = outside;
-      if (aligned) {
-        // face a lands on world row perm[a]; world row r reads face inv_p[r]
-        const bool sels[3] = {use_x, use_y, !(use_x || use_y)};
-        const float sgs[3] = {sgx, sgy, sgz};
-        float wn[3];
+      const float lox = -0.5f - qox, hix = 0.5f - qox;
+      const float loy = -0.5f - qoy, hiy = 0.5f - qoy;
+      const float loz = -0.5f - qoz, hiz = 0.5f - qoz;
+      if (ext) {
+        const float ix = 1.0f / qdx;
+        const float iy = 1.0f / qdy;
+        const float iz = 1.0f / qdz;
+        const float t1x = lox * ix;
+        const float t2x = hix * ix;
+        const float t1y = loy * iy;
+        const float t2y = hiy * iy;
+        const float t1z = loz * iz;
+        const float t2z = hiz * iz;
+        const float tax = jmin(t1x, t2x), tbx = jmax(t1x, t2x);
+        const float tay = jmin(t1y, t2y), tby = jmax(t1y, t2y);
+        const float taz = jmin(t1z, t2z), tbz = jmax(t1z, t2z);
+        const float sgx = t2x < t1x ? 1.0f : -1.0f;
+        const float sgy = t2y < t1y ? 1.0f : -1.0f;
+        const float sgz = t2z < t1z ? 1.0f : -1.0f;
+        const float ax = tax > 0.0f ? tax : -kFmax;
+        const float ay = tay > 0.0f ? tay : -kFmax;
+        const float az = taz > 0.0f ? taz : -kFmax;
+        const float bx = tbx < kFmax ? tbx : kFmax;
+        const float by = tby < kFmax ? tby : kFmax;
+        const float bz = tbz < kFmax ? tbz : kFmax;
+        const float s_min = jmax(ax, jmax(ay, az));
+        const float s_max = jmin(bx, jmin(by, bz));
+        const bool min_is_x = (ax >= ay) && (ax >= az);
+        const bool min_is_y = !min_is_x && (ay >= az);
+        const bool max_is_x = (bx <= by) && (bx <= bz);
+        const bool max_is_y = !max_is_x && (by <= bz);
+        const bool outside = s_min > 0.0f;
+        hit = (s_max >= s_min) && (s_max > 0.0f);
+        const float sparam = outside ? s_min : s_max;
+        const bool use_x = (outside && min_is_x) || (!outside && max_is_x);
+        const bool use_y = (outside && min_is_y) || (!outside && max_is_y);
+        t_world = sparam - kBackoff;
+        if constexpr (OUT) hit_out = outside;
+        if (aligned) {
+          // face a lands on world row perm[a]; world row r reads face inv_p[r]
+          const bool sels[3] = {use_x, use_y, !(use_x || use_y)};
+          const float sgs[3] = {sgx, sgy, sgz};
+          float wn[3];
 #pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          const int a = (c0 == r) ? 0 : ((c1 == r) ? 1 : 2);
-          const bool sa = a == 0 ? sels[0] : (a == 1 ? sels[1] : sels[2]);
-          const float ga = a == 0 ? sgs[0] : (a == 1 ? sgs[1] : sgs[2]);
-          wn[r] = sa ? ga * it[r * 3 + a] : 0.0f;
+          for (int r = 0; r < 3; ++r) {
+            const int a = (c0 == r) ? 0 : ((c1 == r) ? 1 : 2);
+            const bool sa = a == 0 ? sels[0] : (a == 1 ? sels[1] : sels[2]);
+            const float ga = a == 0 ? sgs[0] : (a == 1 ? sgs[1] : sgs[2]);
+            wn[r] = sa ? ga * it[r * 3 + a] : 0.0f;
+          }
+          nox = wn[0];
+          noy = wn[1];
+          noz = wn[2];
+        } else {
+          const float sfx = use_x ? 1.0f : 0.0f;
+          const float sfy = use_y ? 1.0f : 0.0f;
+          const float gx = sgx * sfx;
+          const float gy = sgy * sfy;
+          const float gz = sgz * (1.0f - sfx - sfy);
+          nox = gx * it[0] + gy * it[1] + gz * it[2];
+          noy = gx * it[3] + gy * it[4] + gz * it[5];
+          noz = gx * it[6] + gy * it[7] + gz * it[8];
         }
-        nox = wn[0];
-        noy = wn[1];
-        noz = wn[2];
-      } else {
-        const float sfx = use_x ? 1.0f : 0.0f;
-        const float sfy = use_y ? 1.0f : 0.0f;
-        const float gx = sgx * sfx;
-        const float gy = sgy * sfy;
-        const float gz = sgz * (1.0f - sfx - sfy);
-        nox = gx * it[0] + gy * it[1] + gz * it[2];
-        noy = gx * it[3] + gy * it[4] + gz * it[5];
-        noz = gx * it[6] + gy * it[7] + gz * it[8];
+      }
+      if constexpr (SUNS) {
+        for (unsigned todo = sun_union; todo != 0u; todo &= todo - 1u) {
+          const int j = __ffs(todo) - 1;
+          const float* e = tab + (k * num_suns + j) * 6;
+          if (((suns >> j) & 1u) &&
+              cube_blocks(lox, loy, loz, hix, hiy, hiz, e[3], e[4], e[5], 1e7f))
+            suns &= ~(1u << j);
+        }
       }
     } else {
-      const float nq2 = qdx * qdx + qdy * qdy + qdz * qdz;
-      const float b = qox * qdx + qoy * qdy + qoz * qdz;
       const float c = qox * qox + qoy * qoy + qoz * qoz - 0.25f;
-      const float disc = b * b - nq2 * c;
-      const float sq = sqrtf(jmax(disc, 0.0f));
-      const float inv_a = 1.0f / nq2;
-      const float s1 = (-b + sq) * inv_a;
-      const float s2 = (-b - sq) * inv_a;
-      const bool both_neg = (s1 < 0.0f) && (s2 < 0.0f);
-      const bool both_pos = (s1 > 0.0f) && (s2 > 0.0f);
-      if constexpr (OUT) hit_out = both_pos;
-      const float sparam = both_pos ? jmin(s1, s2) : jmax(s1, s2);
-      hit = (disc >= 0.0f) && !both_neg;
-      t_world = sparam - kBackoff;
-      const float flip = both_pos ? 1.0f : -1.0f;
-      const float sx = (qox + t_world * qdx) * flip;
-      const float sy = (qoy + t_world * qdy) * flip;
-      const float sz = (qoz + t_world * qdz) * flip;
-      if (aligned) {
-        const int p0 = (c0 == 0) ? 0 : ((c1 == 0) ? 1 : 2);
-        const int p1 = (c0 == 1) ? 0 : ((c1 == 1) ? 1 : 2);
-        const int p2 = (c0 == 2) ? 0 : ((c1 == 2) ? 1 : 2);
-        nox = it[0 * 3 + p0] * sel3(p0, sx, sy, sz);
-        noy = it[1 * 3 + p1] * sel3(p1, sx, sy, sz);
-        noz = it[2 * 3 + p2] * sel3(p2, sx, sy, sz);
-      } else {
-        nox = it[0] * sx + it[1] * sy + it[2] * sz;
-        noy = it[3] * sx + it[4] * sy + it[5] * sz;
-        noz = it[6] * sx + it[7] * sy + it[8] * sz;
+      if (ext) {
+        const float nq2 = qdx * qdx + qdy * qdy + qdz * qdz;
+        const float b = qox * qdx + qoy * qdy + qoz * qdz;
+        const float disc = b * b - nq2 * c;
+        const float sq = sqrtf(jmax(disc, 0.0f));
+        const float inv_a = 1.0f / nq2;
+        const float s1 = (-b + sq) * inv_a;
+        const float s2 = (-b - sq) * inv_a;
+        const bool both_neg = (s1 < 0.0f) && (s2 < 0.0f);
+        const bool both_pos = (s1 > 0.0f) && (s2 > 0.0f);
+        if constexpr (OUT) hit_out = both_pos;
+        const float sparam = both_pos ? jmin(s1, s2) : jmax(s1, s2);
+        hit = (disc >= 0.0f) && !both_neg;
+        t_world = sparam - kBackoff;
+        const float flip = both_pos ? 1.0f : -1.0f;
+        const float sx = (qox + t_world * qdx) * flip;
+        const float sy = (qoy + t_world * qdy) * flip;
+        const float sz = (qoz + t_world * qdz) * flip;
+        if (aligned) {
+          const int p0 = (c0 == 0) ? 0 : ((c1 == 0) ? 1 : 2);
+          const int p1 = (c0 == 1) ? 0 : ((c1 == 1) ? 1 : 2);
+          const int p2 = (c0 == 2) ? 0 : ((c1 == 2) ? 1 : 2);
+          nox = it[0 * 3 + p0] * sel3(p0, sx, sy, sz);
+          noy = it[1 * 3 + p1] * sel3(p1, sx, sy, sz);
+          noz = it[2 * 3 + p2] * sel3(p2, sx, sy, sz);
+        } else {
+          nox = it[0] * sx + it[1] * sy + it[2] * sz;
+          noy = it[3] * sx + it[4] * sy + it[5] * sz;
+          noz = it[6] * sx + it[7] * sy + it[8] * sz;
+        }
+      }
+      if constexpr (SUNS) {
+        for (unsigned todo = sun_union; todo != 0u; todo &= todo - 1u) {
+          const int j = __ffs(todo) - 1;
+          const float* e = tab + (k * num_suns + j) * 6;
+          if (((suns >> j) & 1u) &&
+              sphere_blocks(qox, qoy, qoz, c, e[0], e[1], e[2], e[3], e[4], 1e7f))
+            suns &= ~(1u << j);
+        }
       }
     }
     if (hit && (t_world > 0.0f) && (t_world < best_t)) {
@@ -571,7 +700,7 @@ static __device__ HitT<OUT> intersect_all(const SceneTables& sc, float ox, float
 
 // Shadow test (megakernel.occluded_any): does any primitive hit with a
 // backoff-adjusted t in (0, limit)? The same per-geom arithmetic and
-// positivity gate as intersect_all; returns at the first occluder.
+// positivity gate as trace; returns at the first occluder.
 static __device__ bool occluded_any(const SceneTables& sc, float ox, float oy, float oz, float dx,
                                     float dy, float dz, float limit) {
   const int num_geoms = sc.num_geoms;
@@ -580,48 +709,46 @@ static __device__ bool occluded_any(const SceneTables& sc, float ox, float oy, f
     float q[6];
     object_ray(sc, k, ox, oy, oz, dx, dy, dz, q);
     const float qox = q[0], qoy = q[1], qoz = q[2], qdx = q[3], qdy = q[4], qdz = q[5];
-    bool hit;
-    float sparam;
+    bool blocked;
     if (k < num_cubes) {
-      const float ix = 1.0f / qdx;
-      const float iy = 1.0f / qdy;
-      const float iz = 1.0f / qdz;
-      const float t1x = (-0.5f - qox) * ix;
-      const float t2x = (0.5f - qox) * ix;
-      const float t1y = (-0.5f - qoy) * iy;
-      const float t2y = (0.5f - qoy) * iy;
-      const float t1z = (-0.5f - qoz) * iz;
-      const float t2z = (0.5f - qoz) * iz;
-      float ax = jmin(t1x, t2x), ay = jmin(t1y, t2y), az = jmin(t1z, t2z);
-      float bx = jmax(t1x, t2x), by = jmax(t1y, t2y), bz = jmax(t1z, t2z);
-      ax = ax > 0.0f ? ax : -kFmax;
-      ay = ay > 0.0f ? ay : -kFmax;
-      az = az > 0.0f ? az : -kFmax;
-      bx = bx < kFmax ? bx : kFmax;
-      by = by < kFmax ? by : kFmax;
-      bz = bz < kFmax ? bz : kFmax;
-      const float s_min = jmax(ax, jmax(ay, az));
-      const float s_max = jmin(bx, jmin(by, bz));
-      hit = (s_max >= s_min) && (s_max > 0.0f);
-      sparam = s_min > 0.0f ? s_min : s_max;
+      blocked = cube_blocks(-0.5f - qox, -0.5f - qoy, -0.5f - qoz, 0.5f - qox, 0.5f - qoy,
+                            0.5f - qoz, 1.0f / qdx, 1.0f / qdy, 1.0f / qdz, limit);
     } else {
       const float nq2 = qdx * qdx + qdy * qdy + qdz * qdz;
-      const float b = qox * qdx + qoy * qdy + qoz * qdz;
       const float c = qox * qox + qoy * qoy + qoz * qoz - 0.25f;
-      const float disc = b * b - nq2 * c;
-      const float sq = sqrtf(jmax(disc, 0.0f));
-      const float inv_a = 1.0f / nq2;
-      const float s1 = (-b + sq) * inv_a;
-      const float s2 = (-b - sq) * inv_a;
-      const bool both_neg = (s1 < 0.0f) && (s2 < 0.0f);
-      const bool both_pos = (s1 > 0.0f) && (s2 > 0.0f);
-      sparam = both_pos ? jmin(s1, s2) : jmax(s1, s2);
-      hit = (disc >= 0.0f) && !both_neg;
+      blocked = sphere_blocks(qox, qoy, qoz, c, qdx, qdy, qdz, nq2, 1.0f / nq2, limit);
     }
-    const float t_world = sparam - kBackoff;
-    if (hit && (t_world > 0.0f) && (t_world < limit)) return true;
+    if (blocked) return true;
   }
   return false;
+}
+
+// The launch's sun table in shared memory (ENV 3): per (geom k, sun j), at
+// (k * num_suns + j) * 6, the sun's object-space direction (object_ray's)
+// and, for a cube, its three reciprocals, for a sphere |q_d|^2 and its
+// reciprocal: what every sun ray's test reads that no origin changes.
+static __device__ void fill_sun_table(const SceneTables& sc, const EnvSplit& env, float* tab) {
+  const int ns = env.num_suns;
+  for (int i = threadIdx.x; i < ns * sc.num_geoms; i += PT_BLOCK) {
+    const int k = i / ns;
+    const float* sd = env.sun + 6 * (i % ns);
+    float q[6];
+    object_ray(sc, k, 0.0f, 0.0f, 0.0f, sd[0], sd[1], sd[2], q);
+    float* e = tab + i * 6;
+    e[0] = q[3];
+    e[1] = q[4];
+    e[2] = q[5];
+    if (k < sc.num_cubes) {
+      e[3] = 1.0f / q[3];
+      e[4] = 1.0f / q[4];
+      e[5] = 1.0f / q[5];
+    } else {
+      const float nq2 = q[3] * q[3] + q[4] * q[4] + q[5] * q[5];
+      e[3] = nq2;
+      e[4] = 1.0f / nq2;
+      e[5] = 0.0f;
+    }
+  }
 }
 
 // Balance-heuristic weight of a BRDF-sampled emissive hit against NEE having
@@ -854,6 +981,9 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
   if constexpr (NEE) {
     for (int i = threadIdx.x; i < lt.count; i += PT_BLOCK) s_lights[i] = lt.rows[i];
   }
+  // ENV 3: the sun table, sized by the launcher (6 floats a sun and geom)
+  extern __shared__ float s_sun[];
+  if constexpr (ENV == 3) fill_sun_table(sc, env, s_sun);
   __syncthreads();
   const float* mats = s_mats;
 
@@ -891,8 +1021,11 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
   float prev_pdf = -1.0f;
   HitT<REFR> h{};
   h.t = kMiss;
+  // the sun rays cast at the lane's last vertex, traced with the next ray
+  // from it
+  SunVisT<ENV> vs{};
 
-  unsigned long long cnt[PT_MEGA_WORK] = {0ull, 0ull, 0ull};
+  unsigned long long cnt[PT_MEGA_WORK] = {};
 
   // Lanes without a pixel take the next ones of the warp's chunk, in lane
   // order; when the chunk runs out, lane 0 takes the next 32 pixels of the
@@ -948,6 +1081,14 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
     const bool go = __popc(waiting) >= kBatch ||
                     __ballot_sync(kFull, has_px && !start) == 0u;
     const bool active = has_px && (!start || go);
+    // the counting build's visibility rays of this iteration: the light and
+    // env rays that the lanes' vertices cast in it, and the sun rays that
+    // their last vertices cast
+    bool c_light = false, c_env = false;
+    const unsigned c_sun = vs.mask;
+    // the suns that some lane of the warp still has to test
+    unsigned sun_union = 0u;
+    if constexpr (ENV == 3) sun_union = __reduce_or_sync(kFull, vs.mask);
     if (active) {
       if (start) {
         // a new sample of the lane's pixel: its primary ray
@@ -1038,9 +1179,38 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
         rad_b = 0.0f;
         prev_pdf = -1.0f;
       }
-      if (need_trace) {
-        h = intersect_all<REFR>(sc, ox, oy, oz, dx, dy, dz);
-        if (hoisted && s == 0 && depth == 0) h0 = h;
+      if constexpr (ENV != 3) {
+        if (need_trace) {
+          h = trace<REFR, false>(sc, ox, oy, oz, dx, dy, dz, true, vs.mask, nullptr, 0, 0u);
+          if (hoisted && s == 0 && depth == 0) h0 = h;
+        }
+      } else {
+        // the extension ray from the lane's vertex (if it has one) and the
+        // sun rays that vertex cast, in one loop over the primitives; then
+        // the terms of the unoccluded ones, suns 0 .. S-1, before anything
+        // this vertex adds
+        const unsigned cast = vs.mask;
+        if (need_trace || cast != 0u) {
+          const HitT<REFR> hit = trace<REFR, true>(sc, ox, oy, oz, dx, dy, dz, need_trace,
+                                                   vs.mask, s_sun, env.num_suns, sun_union);
+          if (need_trace) {
+            h = hit;
+            if (hoisted && s == 0 && depth == 0) h0 = h;
+          }
+        }
+        if (cast != 0u) {
+          for (int k = 0; k < env.num_suns; ++k) {
+            if ((vs.mask >> k) & 1u) {
+              const float* sd = env.sun + 6 * k;
+              const float cos_sun = vs.nx * sd[0] + vs.ny * sd[1] + vs.nz * sd[2];
+              const float k_sun = vs.diffuse * kInvPi * jmax(cos_sun, 0.0f);
+              rad_r = rad_r + vs.pr * k_sun * sd[3];
+              rad_g = rad_g + vs.pg * k_sun * sd[4];
+              rad_b = rad_b + vs.pb * k_sun * sd[5];
+            }
+          }
+        }
+        vs.mask = 0u;
       }
     }
     // the lane shades the hit in hand at its own depth; with the hit's
@@ -1048,7 +1218,11 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
     // draws, and which of the two draw branches each takes
     const float* m = mats + h.mat * PT_MF;
     const float m_emit = m[8];
-    const bool reach = active && h.t < kMiss && !(m_emit > 0.0f);
+    // (ENV 3: the step that only tests a last vertex's sun rays reaches
+    // nothing; the other variants leave the term out, as the tile variants
+    // measured slower with it on an H100, PERF.md)
+    const bool reach = active && (ENV != 3 || depth < o.trace_depth) && h.t < kMiss &&
+                       !(m_emit > 0.0f);
     const bool ld_draws = o.use_ld && depth < o.n_ld;
     if (PT_MEGA_COUNTS) {
       const unsigned busy = __ballot_sync(kFull, active);
@@ -1062,7 +1236,10 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
     }
     if (active) {
       bool ended = true;  // the path ends at this vertex
-      if (h.t >= kMiss) {
+      if (ENV == 3 && depth == o.trace_depth) {
+        // the sun rays of the path's last vertex, traced above: the path
+        // ends with them
+      } else if (h.t >= kMiss) {
         if constexpr (kExact) {
           // the escape is settled with the sample, below, from the path's
           // throughput, direction and lobe pdf as they stand here
@@ -1266,6 +1443,7 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
               const float wix = tox * rdist, wiy = toy * rdist, wiz = toz * rdist;
               const float cos_s = nx * wix + ny * wiy + nz * wiz;
               const float cos_l2 = -(ln[0] * wix + ln[1] * wiy + ln[2] * wiz);
+              if (PT_MEGA_COUNTS) c_light = (cos_s > 0.0f) && (cos_l2 > 0.0f) && (dist > 1e-4f);
               if ((cos_s > 0.0f) && (cos_l2 > 0.0f) && (dist > 1e-4f) &&
                   !occluded_any(sc, hx, hy, hz, wix, wiy, wiz, dist - jmax(1e-3f, 1e-3f * dist))) {
                 const float diffuse_prob = 1.0f - m_refl;
@@ -1289,6 +1467,7 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
               const float* row = env.rows + (s * o.trace_depth + depth) * 8;
               const float ewx = __ldg(row + 0), ewy = __ldg(row + 1), ewz = __ldg(row + 2);
               const float ecos = nx * ewx + ny * ewy + nz * ewz;
+              if (PT_MEGA_COUNTS) c_env = ecos > 0.0f;
               if ((ecos > 0.0f) && !occluded_any(sc, hx, hy, hz, ewx, ewy, ewz, 1e7f)) {
                 const float e_pdf = __ldg(row + 6);
                 const float ediff = 1.0f - m_refl;
@@ -1309,20 +1488,23 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
           }
 
           if constexpr (ENV == 3) {
-            // delta suns (K5) at the diffuse lobe: one shadow ray each, no
-            // draw, no MIS
+            // delta suns (K5) at the diffuse lobe: a visibility ray toward
+            // each sun above the normal, tested with the next ray from this
+            // vertex (the trace slot above); no draw, no MIS
             if (!glass) {
-              const float diffuse_p = 1.0f - m_refl;
+              unsigned mask = 0u;
               for (int k = 0; k < env.num_suns; ++k) {
                 const float* sd = env.sun + 6 * k;
-                const float cos_sun = nx * sd[0] + ny * sd[1] + nz * sd[2];
-                if ((cos_sun > 0.0f) && !occluded_any(sc, hx, hy, hz, sd[0], sd[1], sd[2], 1e7f)) {
-                  const float k_sun = diffuse_p * kInvPi * jmax(cos_sun, 0.0f);
-                  rad_r = rad_r + cr * m_cr * k_sun * sd[3];
-                  rad_g = rad_g + cg * m_cg * k_sun * sd[4];
-                  rad_b = rad_b + cb * m_cb * k_sun * sd[5];
-                }
+                if (nx * sd[0] + ny * sd[1] + nz * sd[2] > 0.0f) mask |= 1u << k;
               }
+              vs.mask = mask;
+              vs.pr = cr * m_cr;
+              vs.pg = cg * m_cg;
+              vs.pb = cb * m_cb;
+              vs.diffuse = 1.0f - m_refl;
+              vs.nx = nx;
+              vs.ny = ny;
+              vs.nz = nz;
             }
           }
 
@@ -1339,8 +1521,14 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
       }
       if (!ended) {
         depth += 1;
-        need_trace = true;
-        ended = depth == o.trace_depth;
+        if constexpr (ENV == 3) {
+          need_trace = depth < o.trace_depth;
+          // sun rays cast at the path's last vertex take one more iteration
+          ended = !need_trace && vs.mask == 0u;
+        } else {
+          need_trace = true;
+          ended = depth == o.trace_depth;
+        }
       }
       if (ended) {
         // settle the sample: acc + rad (LEGACY: + the terminal throughput,
@@ -1408,6 +1596,20 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
         }
       }
     }
+    if (PT_MEGA_COUNTS && (NEE || ENV >= 2)) {
+      const unsigned bl = __ballot_sync(kFull, c_light);
+      const unsigned be = __ballot_sync(kFull, c_env);
+      const unsigned bs = __ballot_sync(kFull, c_sun != 0u);
+      if (lane_id == 0) {
+        cnt[3] += bl != 0u ? 1ull : 0ull;
+        cnt[4] += be != 0u ? 1ull : 0ull;
+        cnt[5] += bs != 0u ? 1ull : 0ull;
+        cnt[6] += (unsigned long long)__popc(bs);
+      }
+      cnt[7] += c_light ? 1ull : 0ull;
+      cnt[8] += c_env ? 1ull : 0ull;
+      cnt[9] += (unsigned long long)__popc(c_sun);
+    }
     refill();
   }
   if (PT_MEGA_COUNTS) {
@@ -1439,16 +1641,23 @@ static int launch_variant(const Options& o, const SceneTables& t, const LightTab
   // a persistent grid: as many blocks as the card holds at once (fewer for a
   // small frame), each warp taking pixels from the queue until it runs dry
   auto kernel = pt_megakernel<NEE, REFR, DOF, LEGACY, TILES, ENV>;
+  // ENV 3: the sun table in dynamic shared memory (48 KB at 32 suns and 64
+  // geoms; past the default 48 KB a block only by opting in, which fails,
+  // and the launch with it, where the card cannot hold the table)
+  const int smem = ENV == 3 ? (int)sizeof(float) * 6 * split.num_suns * t.num_geoms : 0;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && ENV == 3)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PT_BLOCK, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PT_BLOCK, smem);
   if (err == cudaSuccess) err = cudaMemsetAsync(q.queue, 0, sizeof(unsigned int), stream);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = min(max(per_sm, 1) * sms, (o.n + PT_BLOCK - 1) / PT_BLOCK);
-  kernel<<<blocks, PT_BLOCK, 0, stream>>>(o, t, lt, ta, env, out, q.queue, q.work, q.owners);
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = min(per_sm * sms, (o.n + PT_BLOCK - 1) / PT_BLOCK);
+  kernel<<<blocks, PT_BLOCK, smem, stream>>>(o, t, lt, ta, env, out, q.queue, q.work, q.owners);
   return (int)cudaGetLastError();
 }
 
@@ -1490,7 +1699,7 @@ static int launch_flags(int flags, const Options& o, const SceneTables& t,
 // env_pdf[env_h*env_w], with 2 also env_rows[num_samples*trace_depth*8].
 // env_mode 3 is the split mode (suns, SH, bg_external). `queue` is one
 // device counter that no launch on another stream uses meanwhile (zeroed on
-// `stream` here); `work` (3 counters, zeroed by the caller) and
+// `stream` here); `work` (PT_MEGA_WORK counters, zeroed by the caller) and
 // `owners[ceil(n/32)]` are the counting build's and null in any other.
 extern "C" int pt_megakernel_launch(
     float* out, int n, int width, int height, int seed, int iter_base,

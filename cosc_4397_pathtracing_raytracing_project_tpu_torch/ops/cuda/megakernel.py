@@ -1090,7 +1090,11 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
     lookups under env NEE ('env_pdf'), as 0-d tensors; and per path, the
     bounce-loop iterations it entered ('path_steps') and those of them that
     reached the draws, past the miss and emitter exits ('path_draws'), as
-    lists of int32 [S, N] tensors, one per batch (:func:`path_lengths`)."""
+    lists of int32 [S, N] tensors, one per batch (:func:`path_lengths`);
+    where the variant casts visibility rays, per path the depths d at which
+    it casts a light, env or sun ray (bit d of int64 [S, N] tensors
+    'path_light', 'path_env', 'path_sun') and its sun rays ('path_sun_rays',
+    int32), one per batch (:func:`path_visibility`)."""
     mat_cols = torch.as_tensor(
         packed.mats.reshape(-1, _MF).T.copy(), device=px.pid.device
     )  # [10, M]
@@ -1123,6 +1127,13 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
     alive = torch.ones(shape, dtype=torch.bool, device=px.pid.device)
     steps = torch.zeros(shape, dtype=torch.int32, device=px.pid.device)
     draws = torch.zeros(shape, dtype=torch.int32, device=px.pid.device)
+    vis = {}
+    if stats is not None:
+        kinds = [k for k, on in (("path_light", lights is not None), ("path_env", opts.env_nee),
+                                 ("path_sun", bool(suns))) if on]
+        vis = {k: torch.zeros(shape, dtype=torch.int64, device=px.pid.device) for k in kinds}
+        if suns:
+            vis["path_sun_rays"] = torch.zeros(shape, dtype=torch.int32, device=px.pid.device)
     if exact:
         # deferred escape: throughput, direction and lobe pdf at the escape
         # (never-escaped samples keep weight 0 and a valid direction)
@@ -1348,6 +1359,8 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
             base = act & ~glass if glass is not None else act
             shadow = base & (cos_s > 0.0) & (cos_l2 > 0.0) & (dist > 1e-4)
             _count(stats, "shadow", shadow)
+            if vis:
+                vis["path_light"] |= shadow.to(torch.int64) << depth
             add = shadow & visible
             diffuse_prob = 1.0 - m_refl
             p_brdf_area = (
@@ -1371,6 +1384,8 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
             e_pdf = erow[..., 6]
             ecos = nx * ewx + ny * ewy + nz * ewz
             _count(stats, "env_shadow", base & (ecos > 0.0))
+            if vis:
+                vis["path_env"] |= (base & (ecos > 0.0)).to(torch.int64) << depth
             evis = ~_occluded_any(packed, hx, hy, hz, ewx, ewy, ewz, 1e7)
             ediff = 1.0 - m_refl
             e_pb = ediff * torch.clamp_min(ecos, 0.0) * _INV_PI_F32
@@ -1399,6 +1414,9 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
             # a delta sun at the diffuse lobe: one shadow ray, no draw, no MIS
             cos_sun = nx * sd0 + ny * sd1 + nz * sd2
             _count(stats, "sun_shadow", base & (cos_sun > 0.0))
+            if vis:
+                vis["path_sun"] |= (base & (cos_sun > 0.0)).to(torch.int64) << depth
+                vis["path_sun_rays"] += (base & (cos_sun > 0.0)).to(torch.int32)
             sun_vis = ~_occluded_any(packed, hx, hy, hz, sd0, sd1, sd2, 1e7)
             sun_add = base & (cos_sun > 0.0) & sun_vis
             k_sun = (1.0 - m_refl) * _INV_PI_F32 * torch.clamp_min(cos_sun, 0.0)
@@ -1419,6 +1437,8 @@ def _trace_batch(packed, opts, seed, its, px: _Pixels, primary, stats=None, env_
     if stats is not None:
         stats.setdefault("path_steps", []).append(steps)
         stats.setdefault("path_draws", []).append(draws)
+        for key, v in vis.items():
+            stats.setdefault(key, []).append(v)
     if opts.legacy:  # every path's terminal throughput, as `pathtrace.cu:439-444`
         return (cr, cg, cb)
     if not exact:
@@ -1547,6 +1567,23 @@ def path_lengths(stats: dict) -> Tuple[np.ndarray, np.ndarray]:
     )
 
 
+def path_visibility(stats: dict) -> Optional[dict]:
+    """The per-path visibility rays of :func:`_trace_batch`'s ``stats`` as
+    int64 [S, N] arrays: the depths at which each path casts a light, env or
+    sun ray (bit d; keys 'light', 'env', 'sun', zeros where the variant casts
+    none) and its sun rays ('sun_rays'); None for a variant without
+    visibility rays."""
+    keys = ("path_light", "path_env", "path_sun", "path_sun_rays")
+    if not any(k in stats for k in keys):
+        return None
+    shape = torch.cat(stats["path_steps"], dim=0).shape
+    return {
+        k[5:]: (torch.cat(stats[k], dim=0).cpu().numpy().astype(np.int64) if k in stats
+                else np.zeros(shape, np.int64))
+        for k in keys
+    }
+
+
 def schedule_args(opts: KernelOptions, tiles: bool = False) -> dict:
     """The kernel options :func:`warp_schedule` reads: the Sobol depths,
     whether the primary hit is hoisted, and how many lanes start a sample
@@ -1566,6 +1603,7 @@ def warp_schedule(
     batch: int = 1,
     warps: Optional[int] = None,
     owners: Optional[np.ndarray] = None,
+    vis: Optional[dict] = None,
 ) -> dict:
     """Emulate the kernel's warps on the plain version's path lengths
     (:func:`path_lengths`; ``steps``/``draws`` [S, N] by sample and by the
@@ -1589,7 +1627,17 @@ def warp_schedule(
     that took each chunk (the counting build records it); without it,
     ``warps`` warps step in lockstep and take chunks in warp order.
 
-    Returns ``warp_iters``, ``lane_iters``, ``both_draws``, ``efficiency``,
+    ``vis`` (:func:`path_visibility`) are the paths' visibility rays. Light
+    and env rays are traced in the iteration of the vertex that casts them;
+    sun rays cast at a path's vertex d ride in the lane's next loop
+    iteration, in the trace of the ray leaving that vertex, and those cast
+    at the path's last vertex (trace depth reached) take one more iteration
+    of their own before the sample settles (``added``). The visibility
+    counters (warp iterations in which lanes test light, env or sun rays,
+    the lanes testing sun rays, rays of each kind) are counted there, and
+    are 0 without ``vis``.
+
+    Returns the counters of :data:`WORK`, ``efficiency``, ``added``,
     ``settle_iters`` (warp iterations in which some lane settled a sample:
     the per-sample work, such as the exact environment's escape lookup, runs
     in each of them), ``repeated`` (samples settled with an earlier one's
@@ -1601,13 +1649,14 @@ def warp_schedule(
     steps = np.asarray(steps, np.int64)
     draws = np.asarray(draws, np.int64)
     num_samples, n = steps.shape
+    zero_vis = dict.fromkeys(WORK[3:], 0)
     if schedule == "thread":
         pad = (-n) % 32
         per_warp = np.pad(steps, ((0, 0), (0, pad))).reshape(num_samples, -1, 32)
         iters = int(per_warp.max(axis=2).sum())
         lanes = int(steps.sum())
         return dict(
-            warp_iters=iters, lane_iters=lanes, both_draws=0,
+            warp_iters=iters, lane_iters=lanes, both_draws=0, **zero_vis, added=0,
             settle_iters=num_samples * per_warp.shape[1], repeated=0,
             efficiency=lanes / (32 * iters) if iters else 1.0,
             lane_of=np.arange(n), visits=np.ones(n, np.int64),
@@ -1628,6 +1677,18 @@ def warp_schedule(
         raise ValueError("the regen schedule needs warps or owners")
     length = steps.T.copy()  # [N, S]
     drawn = draws.T.copy()
+    counts = dict(zero_vis)
+    if vis is not None:
+        masks = {k: np.asarray(vis[k], np.int64).T for k in ("light", "env", "sun")}
+        # a path whose last vertex cast sun rays traces them in one more
+        # iteration
+        extra = (masks["sun"] >> np.maximum(length - 1, 0)) & 1
+        length = length + extra
+        # one light and one env ray at most per vertex
+        for kind in ("light", "env"):
+            counts[f"{kind}_rays"] = sum(int(((masks[kind] >> b) & 1).sum())
+                                         for b in range(int(steps.max(initial=0))))
+        counts["sun_rays"] = int(np.asarray(vis["sun_rays"]).sum())
     pix = np.full((warps, 32), -1, np.int64)
     pend = np.zeros((warps, 32), bool)
     smp = np.zeros((warps, 32), np.int64)
@@ -1688,6 +1749,16 @@ def warp_schedule(
         iters += int(busy.sum())
         lanes += int(act.sum())
         p, sm, d = pix[act], smp[act], dep[act]
+        if vis is not None:
+            # the light and env rays that the lane's vertex casts now, the
+            # sun rays that its previous vertex cast
+            for kind, m in masks.items():
+                bit = np.maximum(d - 1, 0) if kind == "sun" else d
+                carry = np.zeros((warps, 32), bool)
+                carry[act] = (((m[p, sm] >> bit) & 1) == 1) & ((d >= 1) | (kind != "sun"))
+                counts[f"{kind}_warps"] += int(carry.any(axis=1).sum())
+                if kind == "sun":
+                    counts["sun_lanes"] += int(carry.sum())
         if use_ld:
             reach = np.zeros((warps, 32), bool)
             reach[act] = d < drawn[p, sm]
@@ -1718,7 +1789,8 @@ def warp_schedule(
             pix[fin] = -1
         refill()
     return dict(
-        warp_iters=iters, lane_iters=lanes, both_draws=both, settle_iters=settles,
+        warp_iters=iters, lane_iters=lanes, both_draws=both, **counts,
+        added=int(extra.sum()) if vis is not None else 0, settle_iters=settles,
         repeated=repeated,
         efficiency=lanes / (32 * iters) if iters else 1.0,
         lane_of=lane_of, visits=visits, samples=settled, in_order=in_order,
@@ -1927,8 +1999,11 @@ KERNEL = Megakernel()
 # the counting build: the same kernel, adding up its bounce loop's warp work
 COUNTING = Megakernel(NVCC_FLAGS + ("-DPT_MEGA_COUNT",))
 # the counting build's counters: warp iterations of the bounce loop, active
-# lane-iterations in them, iterations that ran both draw branches
-WORK = ("warp_iters", "lane_iters", "both_draws")
+# lane-iterations in them, iterations that ran both draw branches; warp
+# iterations that test area-light, env NEE or sun visibility rays, the lanes
+# that test sun rays in them, and the rays of each kind
+WORK = ("warp_iters", "lane_iters", "both_draws", "light_warps", "env_warps", "sun_warps",
+        "sun_lanes", "light_rays", "env_rays", "sun_rays")
 # the kernel's schedule, as warp_schedule names it
 SCHEDULE = "regen"
 

@@ -2,26 +2,33 @@
 """Measure the PyTorch/CUDA port's kernels on one CUDA card.
 
     python3 scripts/torch_measure.py [--out build/torch_measure.json]
-        [--legs megakernel,schedule,mesh,mesh-kernels,mesh-host] [--parent DIR]
+        [--legs megakernel,ab,schedule,mesh,mesh-kernels,mesh-host]
+        [--parent DIR [--diag DIR,...] [--ab-flags="-DX;-DY"]]
 
 With ``--parent DIR`` (a parent commit's checkout, e.g. unpacked with git
-archive into a git-ignored directory), the megakernel leg first compares
-that checkout's package with this one in one process, in turns (parent,
-change, change, parent): one 50-sample launch of every timed variant (K1
-main, antialiased and independent, K1b glass + lens + NEE and throughput,
-K2, K3-K5, K6 over 16 tiles, with and without the environment; the median
-of 20 each) and whether the two outputs are bit-identical, then the main
-path's rays/s (render(1000), two laps a turn) and whether the two images
-are bit-identical.
+archive into a git-ignored directory), the megakernel leg, or ``--legs ab``
+alone, first compares that checkout's package with this one in one process,
+in turns (parent, change, change, parent): one 50-sample launch of every
+timed variant (K1 main, antialiased and independent, K1b glass + lens + NEE
+and throughput, K2, K3-K5, K6 over 16 tiles, with and without the
+environment, then each other compile-time variant of the megakernel once;
+the median of 20 each) and whether the outputs are bit-identical to the
+parent's, then the main path's rays/s (render(1000), two laps a turn) and
+whether the two images are bit-identical. Each ``--diag`` checkout (a
+diagnostic build: an edited copy of a package) and each ``--ab-flags`` set
+(this checkout's kernel built with those nvcc flags) joins the variants'
+turns, with its ptxas registers and spills.
 
 The schedule leg (``--legs schedule``, not in the default): the megakernel's
 counting build (warp iterations of the bounce loop, active lane-iterations,
-iterations that ran both draw branches) against megakernel.warp_schedule's
-emulation on the plain version's path lengths, for the main configuration,
-glass + lens + NEE and the exact environment (env_spheres.txt), one
-50-sample launch at 800×800; then a census of
-the main variant's SASS (cuobjdump -sass) by instruction class, for the
-function and each loop in it, and nvcc's ptxas report.
+iterations that ran both draw branches; warp iterations carrying visibility
+rays of each kind and their rays) against the plain version's ray counts
+and against megakernel.warp_schedule's emulation on the plain version's
+path lengths and visibility rays, for the main configuration, glass + lens
++ NEE, golden + NEE (K2), and env_spheres.txt exact, with env NEE (K4) and
+split (K5), one 50-sample launch at 800×800; then a census of the main
+variant's SASS (cuobjdump -sass) by instruction class, for the function and
+each loop in it, and nvcc's ptxas report.
 
 The megakernel legs (``--legs megakernel``), all at 800×800 on
 scenes/cornell.txt, depth 8, seed 0; times from CUDA events, each kernel row
@@ -445,11 +452,16 @@ def measure_schedule(device, out):
                             device)
     env = Scene.from_desc(load_scene_desc(os.path.join(REPO, "scenes", "env_spheres.txt")),
                           device)
+    golden = Scene.from_desc(load_scene_desc(os.path.join(REPO, "scenes", "cornell_golden.txt")),
+                             device)
     cases = {
         "main": (cornell, RenderConfig(sampler="sobol")),
         "glass_dof_nee": (glass, RenderConfig(enable_refraction=True, dof=True, nee=True,
                                               sampler="sobol")),
+        "nee_aa": (golden, RenderConfig(nee=True, antialias=True, sampler="sobol")),
         "env_exact": (env, RenderConfig()),
+        "env_nee": (env, RenderConfig(nee=True)),
+        "split": (env, RenderConfig(env_mode="split")),
     }
     for name, (sc, cfg) in cases.items():
         opts = mk.kernel_options(cfg, sc)
@@ -459,20 +471,40 @@ def measure_schedule(device, out):
         st = {}
         mk.render_samples_reference(pix, pk, opts, SEED, 1, CHUNK, stats=st)
         steps, draws = mk.path_lengths(st)
+        vis = mk.path_visibility(st)
         row = dict(counted=counted, steps_per_path=float(steps.mean()),
-                   one_step_paths=float((steps == 1).mean()))
-        for sched in dict.fromkeys(("thread", mk.SCHEDULE)):
-            em = mk.warp_schedule(steps, draws, sched, **mk.schedule_args(opts),
-                                  owners=owners if sched == mk.SCHEDULE else None)
-            row[sched] = {k: em[k] for k in mk.WORK + ("efficiency", "settle_iters", "repeated")}
+                   one_step_paths=float((steps == 1).mean()),
+                   plain_rays={k: int(st.get(k, 0)) for k in ("shadow", "env_shadow", "sun_shadow")})
+        del st
+        row["rays_equal_plain"] = [counted[k] for k in VIS_RAYS] == list(row["plain_rays"].values())
+        for k, w in (("light", "light_warps"), ("env", "env_warps"), ("sun", "sun_warps")):
+            lanes = counted["sun_lanes" if k == "sun" else f"{k}_rays"]
+            row[f"{k}_simt"] = lanes / (32 * counted[w]) if counted[w] else None
+        row["sun_rays_per_lane"] = (counted["sun_rays"] / counted["sun_lanes"]
+                                    if counted["sun_lanes"] else None)
+        for sched, v in (("thread", None), (mk.SCHEDULE, None), ("vis", vis)):
+            em = mk.warp_schedule(steps, draws, "thread" if sched == "thread" else mk.SCHEDULE,
+                                  **mk.schedule_args(opts), vis=v,
+                                  owners=None if sched == "thread" else owners)
+            row[sched] = {k: em[k] for k in mk.WORK + ("efficiency", "settle_iters", "repeated",
+                                                       "added")}
+        del vis
         row["counted_efficiency"] = counted["lane_iters"] / (32 * counted["warp_iters"])
-        row["equal"] = all(counted[k] == row[mk.SCHEDULE][k] for k in mk.WORK)
+        # the schedule without visibility rays (the loop counters of a kernel
+        # that traces them at the vertex), and with them riding in the next trace
+        row["equal_loop"] = all(counted[k] == row[mk.SCHEDULE][k] for k in mk.WORK[:3])
+        row["equal"] = all(counted[k] == row["vis"][k] for k in mk.WORK)
         out[f"schedule_{name}"] = row
         print(name, json.dumps(row), flush=True)
     lib = build.build(mk.KERNEL.name, mk.KERNEL.flags)
     out["sass_main"] = sass_census(lib, r"pt_megakernelILb0ELb0ELb0ELb0ELb0ELi0E")
     print("sass main", json.dumps(out["sass_main"]), flush=True)
     out["ptxas"] = build.log_path(mk.KERNEL.name, mk.KERNEL.flags).read_text()
+
+
+# the counting build's rays of each kind, in the order of the plain
+# version's stats 'shadow', 'env_shadow', 'sun_shadow'
+VIS_RAYS = ("light_rays", "env_rays", "sun_rays")
 
 
 def smi(query):
@@ -488,6 +520,9 @@ def main() -> int:
     ap.add_argument("--parent", default=None,
                     help="a parent checkout's root (git archive): the megakernel leg then "
                          "times its kernel and main path against this one's, in turns")
+    ap.add_argument("--diag", default="",
+                    help="with --parent: ','-separated checkouts whose packages join the A/B "
+                         "turns (diagnostic builds)")
     ap.add_argument("--ab-flags", default="",
                     help="with --parent: ';'-separated sets of extra nvcc flags, each a further "
                          "build of this checkout's megakernel in the A/B turns")
@@ -508,7 +543,8 @@ def main() -> int:
         measure_schedule(device, out)
     if ("megakernel" in legs or "ab" in legs) and args.parent:
         extra = [tuple(f.split()) for f in args.ab_flags.split(";") if f.strip()]
-        measure_ab(device, out, args.parent, extra)
+        diag = [d for d in args.diag.split(",") if d.strip()]
+        measure_ab(device, out, args.parent, extra, diag)
     elif "ab" in legs:
         ap.error("the ab leg needs --parent")
     if "megakernel" in legs:
@@ -545,10 +581,21 @@ def load_package(root, alias):
     return module
 
 
+# an emissive sphere added to env_spheres.txt (split + NEE needs an analytic
+# light)
+ENV_LIGHT = ("MATERIAL 4\nRGB 1 .9 .8\nSPECEX 0\nSPECRGB 0 0 0\nREFL 0\nREFR 0\nREFRIOR 0\n"
+             "EMITTANCE 4\n\n", "\nOBJECT {n}\nsphere\nmaterial 4\nTRANS 1.5 2.6 1\nROTAT 0 0 0\n"
+             "SCALE .6 .6 .6\n")
+
+
 def variant_launchers(pkg, device, kernel=None):
     """One 50-sample launch of each timed kernel variant, built with the
     package ``pkg`` (this checkout's or a parent's) or with its ``kernel``
-    binding, keyed by name."""
+    binding, keyed by name: the named cases of the K1-K6 rows, then each
+    other compile-time variant once ('v <variant>': sobol, no
+    antialiasing; cornell_golden.txt without an environment,
+    env_spheres.txt with one and, for split + NEE, an emissive sphere in it;
+    a 0.3 lens for dof; 16 tiles)."""
     kmod = importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel")
     kernel = kernel or kmod.KERNEL
     layout = importlib.import_module(pkg.__name__ + ".render.adaptive").make_tile_layout
@@ -586,6 +633,41 @@ def variant_launchers(pkg, device, kernel=None):
         "K6 tiles16": (golden, cfg(nee=True, sampler="sobol"), tiles),
         "K6 env_tiles16": (env, cfg(sampler="sobol"), tiles),
     }
+    env_text = open(os.path.join(REPO, "scenes", "env_spheres.txt")).read()
+    n_env = env_text.count("\nOBJECT ")
+    env_light = (env_text.replace("\nENVIRONMENT\n", "\n" + ENV_LIGHT[0] + "ENVIRONMENT\n", 1)
+                 + ENV_LIGHT[1].format(n=n_env))
+    scenes = {}
+
+    def variant_scene(env_mode, nee, dof):
+        key = (env_mode, nee, dof)
+        if key not in scenes:
+            if env_mode == "none":
+                text = open(os.path.join(REPO, "scenes", "cornell_golden.txt")).read()
+            else:
+                text = env_light if (env_mode == "split" and nee) else env_text
+            if dof:
+                text = text.replace("LOOKAT", "APERTURE    0.3\nLOOKAT", 1)
+            scenes[key] = pkg.Scene.from_desc(
+                pkg.parse_scene(text, base_dir=os.path.join(REPO, "scenes")), device)
+        return scenes[key]
+
+    named = {kmod.variant_name(kmod.kernel_options(c, sc), tl is not None)
+             for sc, c, tl in cases.values()}
+    for flags in range(128):
+        nee, refr, dof, legacy, tl = (bool(flags >> b & 1) for b in range(5))
+        env = flags >> 5
+        if (nee and legacy) or (env and legacy) or (nee and env in (1, 2)) or (tl and env >= 2):
+            continue
+        env_mode = ("none", "exact", "exact", "split")[env]
+        config = cfg(nee=nee or env == 2, enable_refraction=refr, dof=dof, sampler="sobol",
+                     gather_mode="throughput" if legacy else "light_only",
+                     env_mode="split" if env == 3 else "exact")
+        sc = variant_scene(env_mode, nee, dof)
+        name = kmod.variant_name(kmod.kernel_options(config, sc), tl)
+        if name not in named:
+            cases[f"v {name}"] = (sc, config, tiles if tl else None)
+            named.add(name)
     launchers = {}
     for name, (sc, config, tl) in cases.items():
         opts = kmod.kernel_options(config, sc)
@@ -602,7 +684,7 @@ def variant_launchers(pkg, device, kernel=None):
     return launchers
 
 
-def measure_ab(device, out, parent_root, extra_flags=()):
+def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=()):
     """The kernel variants and the main path, this checkout against the
     parent's package at ``parent_root``, in turns (parent, change, change,
     parent): each variant's 50-sample launch (median of 20) and bit identity
@@ -610,14 +692,18 @@ def measure_ab(device, out, parent_root, extra_flags=()):
     step, two laps a turn). Each of ``extra_flags`` (a tuple of nvcc flags)
     adds a build of this checkout's kernel with those flags to the variants'
     turns (parent, change, extra builds, then back in reverse order), with
-    its ptxas registers and spills."""
+    its ptxas registers and spills. Each of ``diag_roots`` (another
+    checkout, such as a diagnostic build) joins the turns the same way."""
     pkgs = {"parent": load_package(parent_root, "parent_pkg"),
             "change": sys.modules[PACKAGE]}
+    for i, root in enumerate(diag_roots):
+        pkgs[os.path.basename(os.path.normpath(root))] = load_package(root, f"diag{i}_pkg")
     kernels = {side: importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel").KERNEL
                for side, pkg in pkgs.items()}
     for flags in extra_flags:
         kernels[" ".join(flags)] = mk.Megakernel(build.NVCC_FLAGS + tuple(flags))
-    build_modules = {"parent": importlib.import_module("parent_pkg.ops.cuda.build")}
+    build_modules = {side: importlib.import_module(pkg.__name__ + ".ops.cuda.build")
+                     for side, pkg in pkgs.items() if side != "change"}
     with ThreadPoolExecutor(max_workers=len(kernels)) as pool:  # one nvcc each, together
         builds = [pool.submit(build_modules.get(side, build).build, k.name, k.flags)
                   for side, k in kernels.items()]
@@ -642,14 +728,15 @@ def measure_ab(device, out, parent_root, extra_flags=()):
               + f" ms; bit-identical {same}", flush=True)
     out["ab_variants"] = rows
     renderers = {
-        side: pkg.Renderer(os.path.join(REPO, "scenes", "cornell.txt"),
-                           pkg.RenderConfig(samples_per_launch=200, sampler="sobol"),
-                           device=device)
-        for side, pkg in pkgs.items()
+        side: pkgs[side].Renderer(os.path.join(REPO, "scenes", "cornell.txt"),
+                                  pkgs[side].RenderConfig(samples_per_launch=200,
+                                                          sampler="sobol"),
+                                  device=device)
+        for side in ("parent", "change")
     }
     for r in renderers.values():
         r.step(200)
-    laps = {side: [] for side in pkgs}
+    laps = {side: [] for side in renderers}
     for side in ("parent", "change", "change", "parent") * 2:
         r = renderers[side]
         r.reset()

@@ -718,13 +718,143 @@ def test_cuda_counting_build_equals_the_warp_schedule(case, cuda):
     tmk.render_samples_reference(pix, packed, opts, 7, 3, samples, stats=stats)
     steps, draws = tmk.path_lengths(stats)
     want = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, **tmk.schedule_args(opts),
-                             owners=owners)
+                             owners=owners, vis=tmk.path_visibility(stats))
     assert counted == {k: want[k] for k in tmk.WORK}
     assert (want["visits"] == 1).all() and want["in_order"]
     work = torch.zeros(len(tmk.WORK), dtype=torch.int64, device=cuda)
     own = torch.full_like(torch.as_tensor(owners, device=cuda), -1)
     got = tmk.COUNTING(packed, opts, 7, 3, samples, cuda, work=work, owners=own)
     assert torch.equal(got, tmk.KERNEL(packed, opts, 7, 3, samples, cuda))
+
+
+# ── the visibility rays (K2's light ray, K4's env ray, K5's sun rays, the
+# last traced with the next ray from their vertex): bit for bit ──
+
+
+def sun_below_text(directory, res=64):
+    """A ground slab alone under a map whose one bright texel lies below the
+    horizon: every diffuse vertex faces up, away from the split's sun."""
+    img = np.full((16, 32, 3), 0.05, np.float32)
+    img[12, 7] = [120.0, 100.0, 80.0]
+    path = write_hdr(os.path.join(str(directory), "low_sun.hdr"), img)
+    text = env_scene_text(path, res)
+    return text[: text.index("OBJECT 1")]
+
+
+def _vis_case(case, device, tmp_path):
+    """(scene, config, samples) of a visibility case (64×64 unless named)."""
+    sun = lambda: write_env_map(tmp_path, "sun")  # noqa: E731
+    parse = lambda text, base=_SCENES: Scene.from_desc(parse_scene(text, base_dir=base), device)  # noqa: E731
+    golden = _scene_text("cornell_golden.txt")
+    meadow = env_spheres_text()
+    cubes = many_cubes_text(64, depth=3).replace(
+        "CAMERA", "ENVIRONMENT\nFILE meadow.hdr\nSTRENGTH 1\n\nCAMERA", 1)
+    cases = {
+        "nee-depth1": (golden, _SCENES, dict(nee=True, trace_depth=1, sampler="sobol"), 3),
+        "nee-depth2-aa": (golden, _SCENES, dict(nee=True, trace_depth=2, antialias=True), 3),
+        "nee-two-lights": (two_light_golden(golden), _SCENES, dict(nee=True), 2),
+        "nee-glass-refraction": (_scene_text("cornell_glass.txt"), _SCENES,
+                                 dict(nee=True, enable_refraction=True), 2),
+        "nee-50x37-px": (_scene_text("cornell_golden.txt").replace(
+            "RES         64 64", "RES         50 37"), _SCENES, dict(nee=True, sampler="sobol"), 3),
+        "nee-env-split": (None, None, dict(env_mode="split", nee=True), 2),
+        "split-0-suns": (meadow, _SCENES, dict(env_mode="split", env_split_suns=0), 2),
+        "split-1-sun": (meadow, _SCENES, dict(env_mode="split", env_split_suns=1), 2),
+        "split-32-suns": (meadow, _SCENES, dict(env_mode="split", env_split_suns=32,
+                                                env_split_thresh=1.0), 2),
+        "split-suns-below": (None, None, dict(env_mode="split"), 2),
+        "split-64-geoms-32-suns": (cubes, _SCENES, dict(env_mode="split", env_split_suns=32,
+                                                        env_split_thresh=1.0), 2),
+        "env-nee-depth2": (meadow, _SCENES, dict(nee=True, trace_depth=2), 2),
+    }
+    text, base, cfg, samples = cases[case]
+    if case == "nee-env-split":
+        text, base = env_scene_text(sun(), light=True), str(tmp_path)
+    elif case == "split-suns-below":
+        text, base = sun_below_text(tmp_path), str(tmp_path)
+    return parse(text, base), RenderConfig(**cfg), samples
+
+
+VIS_CASES = ["nee-depth1", "nee-depth2-aa", "nee-two-lights", "nee-glass-refraction",
+             "nee-50x37-px", "nee-env-split", "split-0-suns", "split-1-sun", "split-32-suns",
+             "split-suns-below", "split-64-geoms-32-suns", "env-nee-depth2"]
+
+
+def test_visibility_cases_carry_what_they_name(tmp_path):
+    """On the CPU: each case's scene holds the suns, geoms and lights it
+    names, and the low sun casts no ray in the plain version."""
+    suns = {}
+    for case in VIS_CASES:
+        scene, config, _ = _vis_case(case, "cpu", tmp_path)
+        opts = tmk.kernel_options(config, scene)
+        packed = tmk.pack_scene(scene, nee=opts.nee, config=config)
+        suns[case] = packed.env.num_suns if opts.env == "split" else None
+        if case == "split-64-geoms-32-suns":
+            assert packed.num_geoms == tmk.MAX_GEOMS
+        if case.startswith("nee"):
+            assert opts.nee
+    assert suns["split-0-suns"] == 0 and suns["split-1-sun"] == 1
+    assert suns["split-32-suns"] == suns["split-64-geoms-32-suns"] == tmk.MAX_SUNS
+    assert suns["split-suns-below"] >= 1
+    scene, config, n = _vis_case("split-suns-below", "cpu", tmp_path)
+    stats = {}
+    tmk.render_samples_reference(torch.arange(scene.camera.pixel_count),
+                                 tmk.pack_scene(scene, config=config),
+                                 tmk.kernel_options(config, scene), 7, 3, n, stats=stats)
+    assert int(stats["sun_shadow"]) == 0 and int(stats["scatter"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VIS_CASES)
+def test_cuda_visibility_rays_match_plain_version_bit_for_bit(case, cuda, tmp_path):
+    scene, config, samples = _vis_case(case, cuda, tmp_path)
+    opts = tmk.kernel_options(config, scene)
+    packed = tmk.pack_scene(scene, nee=opts.nee, config=config)
+    got = tmk.KERNEL(packed, opts, 7, 3, samples, cuda)
+    pix = torch.arange(scene.camera.pixel_count, device=cuda)
+    want = tmk.render_samples_reference(pix, packed, opts, 7, 3, samples)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_dispatch_with_nee_depth1_is_bit_for_bit(cuda):
+    """K6 with NEE at depth 1, where every light ray is cast at a path's
+    last vertex: 4 tiles (one repeated) with distinct bases."""
+    scene, _ = _option_scene("nee-aa-sobol", cuda)
+    config = RenderConfig(nee=True, sampler="sobol", trace_depth=1)
+    packed = tmk.pack_scene(scene, nee=True)
+    ids = torch.tensor([1, 0, 1, 3], dtype=torch.int32, device=cuda)
+    bases = torch.tensor([1, 5, 9, 3], dtype=torch.int32, device=cuda)
+    flat = torch.as_tensor(np.random.default_rng(7).integers(0, 64 * 64, 4 * tmk.TILE),
+                           device=cuda)
+    px = (flat % 64).to(torch.float32)
+    py = (flat // 64).to(torch.float32)
+    got = tmk.render_tiles(scene, config, 7, ids, bases, px, py, 3, packed=packed)
+    want = tmk.render_tiles_reference(px, py, ids, bases, packed, tmk.kernel_options(config), 7, 3)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nee-depth2-aa", "nee-env-split", "split-32-suns",
+                                  "env-nee-depth2"])
+def test_cuda_counting_build_counts_the_visibility_rays(case, cuda, tmp_path):
+    """The counting build's rays of each kind are the plain version's
+    counts, and all its counters equal warp_schedule's emulation on the
+    plain version's paths and visibility rays."""
+    scene, config, samples = _vis_case(case, cuda, tmp_path)
+    opts = tmk.kernel_options(config, scene)
+    packed = tmk.pack_scene(scene, nee=opts.nee, config=config)
+    counted, owners = tmk.kernel_warp_work(packed, opts, 7, 3, samples, cuda)
+    stats = {}
+    pix = torch.arange(scene.camera.pixel_count, device=cuda)
+    tmk.render_samples_reference(pix, packed, opts, 7, 3, samples, stats=stats)
+    assert [counted["light_rays"], counted["env_rays"], counted["sun_rays"]] == [
+        int(stats.get(k, 0)) for k in ("shadow", "env_shadow", "sun_shadow")]
+    steps, draws = tmk.path_lengths(stats)
+    want = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, **tmk.schedule_args(opts),
+                             owners=owners, vis=tmk.path_visibility(stats))
+    assert counted == {k: want[k] for k in tmk.WORK}
+    assert (want["added"] > 0) == (opts.env == "split")
 
 
 # ── the mesh kernels K7/K8 and the mesh pipeline ──
