@@ -9,7 +9,8 @@ Phases, in order; any failure raises and exits non-zero:
    csrc/mesh_kernel.cu, each also as its work-counting build, one nvcc
    each, all started together) into build/torch_kernels/ and print ptxas'
    register and spill report for each compile-time variant of the
-   megakernel and each instantiation of the mesh kernel;
+   megakernel and each instantiation of the mesh kernel, and the blocks an
+   SM holds of the main and every NEE variant;
 2. kernel vs plain: the megakernel against its plain PyTorch version on the
    card, at the main path's shapes (scenes/cornell.txt, 800×800, depth 8,
    2 spp, and the golden leg's antialiased variant), within the stated
@@ -31,11 +32,17 @@ Phases, in order; any failure raises and exits non-zero:
    bit-identical to early_exit off), (f) throughput on cornell.txt, (g) the
    tile dispatch over 16 tiles with distinct iteration bases; one 50-sample
    launch of kernel and plain version for (a), (c) and (g); for (a), K2's
-   case, the visibility rays of that launch: the counting build's light rays
-   against the plain version's (equal, digit for digit), all its counters
-   against the emulation (equal), the visibility loop's SIMT efficiency, and
-   the launch's bound with the rays traced alone beside the bound of the
-   design (sun rays share the trace of the next ray from their vertex);
+   case, and (c) the visibility rays of that launch: the counting build's
+   light rays against the plain version's (equal, digit for digit), all its
+   counters against the emulation (equal), the light rays' queue (passes,
+   their SIMT efficiency, exit passes, rays tested after their pixel was
+   written out), and the launch's bound with the rays traced alone beside
+   the bound of the design (sun rays share the trace of the next ray from
+   their vertex); then K6 at the adaptive leg's own dispatches (the
+   warm-up's 650 tile slots x 32 samples and a round's 162 x 16), kernel
+   vs plain version at that size, both times, the bound, and the round's
+   counts against the emulation, and a pixel-sample of the round beside
+   one of the full-frame NEE launch with the leg's options;
 7. quality leg: golden + NEE, 1000 spp: PSNR (floor 36.5 dB and above phase
    4's 1000-spp PSNR), rays/s, and channel means between phase 4's at
    depth 8 and the same leg's at depth 9, within 1%: NEE at the last
@@ -51,7 +58,9 @@ Phases, in order; any failure raises and exits non-zero:
    2 spp, same tolerance: exact (independent, sobol, refraction), env NEE,
    split with the background composited outside (no antialiasing) and
    without it (antialias), and the tile dispatch with exact env over 16
-   tiles; then one 50-sample launch of kernel and plain version of each,
+   tiles and at the environment adaptive leg's warm-up and round (kernel vs
+   plain version, times and bounds at that size); then one 50-sample launch
+   of kernel and plain version of each,
    and for env NEE (K4) and the split composite (K5) the visibility rays of
    that launch as phase 6 reports K2's;
 11. environment legs: Renderer(env_spheres) render(1000) in exact, exact +
@@ -90,8 +99,10 @@ Phases, in order; any failure raises and exits non-zero:
 18. mesh NEE leg: the same with nee=True (K7 and K8 launches, kernel
    against plain pipeline), and its channel means between the non-NEE
    depth-8 and depth-9 means, 1% slack each side;
-19. one JSON line describing each ported kernel (K7's and K8's times and
-   bounds are the sums over one sample's launches, whose count
+19. K6's loss over the adaptive legs' launches (launches x (time - bound),
+   the warm-up and the rounds each at its own size), then one JSON line
+   describing each ported kernel (K6's times and bound are the round's;
+   K7's and K8's are the sums over one sample's launches, whose count
    'launches_per_sample' gives), the card, the result line.
 
 Every leg sets the launch counts to 0 just before it and reads them just
@@ -114,8 +125,10 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # kernel vs plain version on the card (same bound as tests/test_torch_cuda.py,
-# which states its reason): measured bit-identical, while a -fmad=true build
-# differs in 1.25e-5 of pixels by more than 1e-3 with a mean gap of 2.5e-5
+# which states its reason): measured bit-identical without NEE and within
+# 1e-6 with it (the light terms join the sum from the warp's queue), while a
+# -fmad=true build differs in 1.25e-5 of pixels by more than 1e-3 with a
+# mean gap of 2.5e-5
 MAX_SHARE_OVER_1E3 = 1e-4
 MEAN_RTOL = 1e-4
 # golden PSNR floors (the JAX reference scored 34.63 / 37.91 dB)
@@ -207,8 +220,80 @@ MESH_SORT_ATOL = 1e-7
 # NEE means stay within 1e-5)
 MESH_SPP = 64
 
-PTX_VARIANT = re.compile(r"pt_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E")
+# the adaptive legs' dispatches at 800x800 (AdaptiveRenderer.render(256):
+# 325 tiles of 32x64, a 64-spp warm-up, then 23 rounds of 32 spp on a
+# quarter of the tiles), each launch rendering buffers A and B of its tiles:
+# (tiles, samples a launch, iteration bases of buffer A and B). The round is
+# the first after the warm-up (every tile at 32 samples a buffer), on the
+# 81 tiles a round takes (a quarter of 325), here every fourth: the tiles a
+# round picks by their noise vary by render.
+ADAPTIVE_TILES = 325
+ADAPTIVE_DISPATCH = {
+    "warmup": (tuple(range(ADAPTIVE_TILES)), 32, 1, 33),
+    "round": (tuple(range(0, 4 * 81, 4)), 16, 65, 81),
+}
+# K6 keeps a tile-specific loss if a pixel-sample of its round costs more
+# than this factor times one of the full-frame NEE launch on the same scene
+K6_TILE_LOSS = 1.15
+
+PTX_VARIANT = re.compile(r"pt_megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)ELb(\d)E")
 PTX_MESH = re.compile(r"pt_mesh_intersectILb(\d)E")
+
+
+def _adaptive_tiles(device, which):
+    """(tile ids, iteration bases, px, py, samples) of one of the adaptive
+    legs' dispatches (ADAPTIVE_DISPATCH) on the 800x800 layout, as
+    AdaptiveRenderer builds it."""
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.adaptive import (
+        make_tile_layout,
+    )
+
+    ids, samples, base_a, base_b = ADAPTIVE_DISPATCH[which]
+    gpx, gpy, _, _ = make_tile_layout(800, 800)
+    if gpx.shape[0] != ADAPTIVE_TILES:
+        raise AssertionError(f"the 800x800 layout has {gpx.shape[0]} tiles, not {ADAPTIVE_TILES}")
+    ids2 = torch.tensor(ids + ids, dtype=torch.int32, device=device)
+    bases = torch.tensor([base_a] * len(ids) + [base_b] * len(ids), dtype=torch.int32,
+                         device=device)
+    rows = ids2.long()
+    return (ids2, bases, torch.as_tensor(gpx, device=device)[rows].reshape(-1).contiguous(),
+            torch.as_tensor(gpy, device=device)[rows].reshape(-1).contiguous(), samples)
+
+
+def _time_dispatch(what, pk, opts, device, seed, dispatch):
+    """One launch of an adaptive dispatch (_adaptive_tiles) against the plain
+    version: both outputs held to the kernel-vs-plain bound, the kernel's
+    time (mean of 3), the plain version's (one run) and the bound from the
+    plain version's work. Returns ((ms, plain_ms, bound), max |d|, the plain
+    version's work)."""
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+
+    ids, bases, tpx, tpy, samples = dispatch
+    table = torch.cat([ids, bases])
+    got = mk.KERNEL(pk, opts, seed, 0, samples, device, tiles=(table, tpx, tpy))
+    w = {}
+    want = mk.render_tiles_reference(tpx, tpy, ids, bases, pk, opts, seed, samples, stats=w)
+    torch.cuda.synchronize()
+    err = _check_close(got, want, f"{what}: {ids.numel()} tile slots x {samples} samples "
+                                  f"[{mk.variant_name(opts, True)}]")
+    del got, want
+    k_ms = _time_ms(lambda: mk.KERNEL(pk, opts, seed, 0, samples, device,
+                                      tiles=(table, tpx, tpy)), reps=3)
+    p_ms = _time_ms(lambda: mk.render_tiles_reference(tpx, tpy, ids, bases, pk, opts, seed,
+                                                      samples), reps=1)
+    env_bytes = pk.env.height * pk.env.width * 16 if opts.env == "exact" else 0
+    bnd = _bound(pk, opts, w, tpx.numel() * 12, tpx.numel() * 8 + table.numel() * 4 + env_bytes)
+    print(f"  {what}: one {samples}-sample launch over {ids.numel()} tile slots "
+          f"({tpx.numel()} lanes; queue items of "
+          f"{mk.tile_group(tpx.numel(), samples, device)} samples): kernel {k_ms:.4f} ms, "
+          f"plain version {p_ms:.1f} ms; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}); {k_ms * 1e6 / (tpx.numel() * samples):.4f} ns a "
+          f"pixel-sample")
+    return (k_ms, p_ms, bnd), err, w
 
 
 def _check_close(got, want, what):
@@ -301,29 +386,38 @@ def _bound(packed, opts, work, out_bytes, in_bytes, shared=True):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _visibility(what, pk, opts, device, seed, n, stats, old_bound, new_bound):
-    """The visibility rays of one n-sample launch (iterations from 1): the
-    counting build's rays of each kind against the plain version's
-    ``stats`` (equal, digit for digit) and its counters against
-    warp_schedule's emulation on the plain version's paths (equal); prints
-    them with the visibility loop's SIMT efficiency of each kind (lanes
-    carrying a ray over 32 times the warp iterations carrying one) and the
-    launch's bound with the rays traced alone beside the design's."""
+def _visibility(what, pk, opts, device, seed, n, stats, old_bound, new_bound, tiles=None):
+    """The visibility rays of one n-sample launch (iterations from 1, or
+    over ``tiles`` = (table, px, py) at their own bases): the counting
+    build's rays of each kind against the plain version's ``stats`` (equal,
+    digit for digit) and its counters against warp_schedule's emulation on
+    the plain version's paths (equal); prints them with the visibility
+    loop's SIMT efficiency of each kind (lanes carrying a ray over 32 times
+    the warp iterations carrying one; for light rays, tested from the warp's
+    queue, lanes over 32 times the passes that test them), the queue's
+    passes, exit passes and late rays, and the launch's bound with the rays
+    traced alone beside the design's."""
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
 
-    counted, owners = mk.kernel_warp_work(pk, opts, seed, 1, n, device)
+    group = mk.tile_group(tiles[1].numel(), n, device) if tiles else None
+    kw = dict(tiles=tiles, group=group) if tiles else {}
+    counted, owners = mk.kernel_warp_work(pk, opts, seed, 0 if tiles else 1, n, device, **kw)
     plain = {"light_rays": int(stats.get("shadow", 0)), "env_rays": int(stats.get("env_shadow", 0)),
              "sun_rays": int(stats.get("sun_shadow", 0))}
     steps, draws = mk.path_lengths(stats)
-    em = mk.warp_schedule(steps, draws, mk.SCHEDULE, **mk.schedule_args(opts), owners=owners,
-                          vis=mk.path_visibility(stats))
+    em = mk.warp_schedule(steps, draws, mk.SCHEDULE, **mk.schedule_args(opts, tiles is not None),
+                          owners=owners, vis=mk.path_visibility(stats), group=group)
     simt = {kind: round((counted["sun_lanes"] if kind == "sun" else counted[f"{kind}_rays"])
                         / (32 * counted[f"{kind}_warps"]), 4)
-            for kind in ("light", "env", "sun") if counted[f"{kind}_warps"]}
+            for kind in ("env", "sun") if counted[f"{kind}_warps"]}
+    if counted["light_passes"]:
+        simt["light"] = round(counted["light_pass_lanes"] / (32 * counted["light_passes"]), 4)
     print(f"  {what}: visibility rays, counting build {[counted[k] for k in plain]} (light, env, "
           f"sun), plain version {list(plain.values())}; warp iterations carrying them "
           f"{[counted[k] for k in ('light_warps', 'env_warps', 'sun_warps')]}, SIMT efficiency "
           f"{simt}, sun rays a lane {counted['sun_rays'] / max(counted['sun_lanes'], 1):.3f}; "
+          f"light queue: {counted['light_passes']} passes, {counted['light_exit_passes']} of them "
+          f"at exit, {counted['light_late']} rays late (their term to out[p]); "
           f"steps added for the last vertex's rays {em['added']}; loop SIMT efficiency "
           f"{counted['lane_iters'] / (32 * counted['warp_iters']):.4f}; counting build = emulation "
           f"{counted == {k: em[k] for k in mk.WORK}}; bound {old_bound[0]:.4f} ms as counted "
@@ -346,6 +440,8 @@ def _ptxas_report(log_text):
         if m:
             flags = [b == "1" for b in m.groups()[:5]]
             parts = [n for n, f in zip(names, flags) if f] + [env_names[int(m.group(6))]]
+            if m.group(7) == "1":  # the tile dispatch with sample-group items
+                parts.append("sample_items")
             current = "+".join(p for p in parts if p) or "main"
             spill = ""
         elif current and "spill" in line:
@@ -624,6 +720,13 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
     got = mk.KERNEL(pk_t, opts_t, seed, 0, 2, device, tiles=(table, tpx, tpy))
     want = mk.render_tiles_reference(tpx, tpy, ids, bases, pk_t, opts_t, seed, 2)
     errs["exact tiles"] = _check_close(got, want, "exact tiles, 16 tiles [tiles+env_exact]")
+    # K6 at the environment adaptive leg's own dispatches (phase 14)
+    k6_env = {}
+    for which in ("warmup", "round"):
+        k6_env[which], err, w = _time_dispatch(f"K6 env {which}", pk_t, opts_t, device, seed,
+                                               _adaptive_tiles(device, which))
+        errs["exact tiles"] = max(errs["exact tiles"], err)
+        del w
     env_bytes = lambda pk: (pk.env.height * pk.env.width * 16  # noqa: E731
                             if pk.env.mode == "exact" else 0)
     for what, (pk, opts) in prepared.items():
@@ -769,7 +872,7 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
     if not (np.isfinite(ada_img).all() and ada_img.mean() > 0.0) or spp_map.min() < 64:
         raise AssertionError("the environment adaptive image is malformed")
     return {"errs": errs, "times": times, "launches": launches,
-            "adaptive_launches": sum(ada_launches.values())}
+            "adaptive_launches": sum(ada_launches.values()), "k6": k6_env}
 
 
 # tests/test_envmap.py's furnace: a diffuse sphere under a constant map
@@ -855,10 +958,21 @@ def main() -> int:
     report = _ptxas_report(build.log_path(mk.KERNEL.name).read_text())
     for variant, regs, spill in report:
         print(f"  ptxas: {variant}: {regs} registers; {spill}")
-    if len(report) != 44:
-        raise AssertionError(f"expected 44 kernel variants in ptxas' report, got {len(report)}")
+    # 44 option sets, and the 16 tile ones again with sample-group items
+    if len(report) != 60:
+        raise AssertionError(f"expected 60 kernel variants in ptxas' report, got {len(report)}")
     main_row = [r for r in report if r[0] == "main"]
     print(f"  main variant: {main_row}")
+    # the blocks an SM holds of main and of every NEE variant (with the light
+    # rays' queue in shared memory; the launch bounds ask for 7)
+    base = mk.kernel_options(RenderConfig(sampler="sobol"))
+    occupancy = {"main": mk.KERNEL.blocks_per_sm(base)}
+    for refr, dof, tiles, env in ((r, d, t, e) for r in (False, True) for d in (False, True)
+                                  for t in (False, True) for e in ("none", "split")
+                                  if not (t and e == "split")):
+        o = dataclasses.replace(base, nee=True, refraction=refr, dof=dof, env=env)
+        occupancy[mk.variant_name(o, tiles)] = mk.KERNEL.blocks_per_sm(o, tiles)
+    print(f"  resident blocks an SM: {occupancy}")
 
     # 2. kernel vs plain version at the main path's shapes
     print("[2] kernel vs plain version, cornell.txt 800x800, depth 8, 2 spp")
@@ -1039,18 +1153,39 @@ def main() -> int:
         w = {}
         mk.render_samples_reference(pix, pk, opts, seed, 1, chunk, stats=w)
         times[key] = (k_ms, p_ms, _bound(pk, opts, w, pix.numel() * 12, 0))
-        if key == "a":  # K2
-            _visibility("a (K2)", pk, opts, device, seed, chunk, w,
-                        _bound(pk, opts, w, pix.numel() * 12, 0, shared=False), times[key][2])
+        # K2's and K1b's light rays: the counting build against the emulation
+        _visibility(f"{key} ({'K2' if key == 'a' else 'K1b'})", pk, opts, device, seed, chunk, w,
+                    _bound(pk, opts, w, pix.numel() * 12, 0, shared=False), times[key][2])
         del w
     k_ms = _time_ms(lambda: tiles_kernel(chunk), reps=3)
     p_ms = _time_ms(lambda: tiles_plain(chunk), reps=1)
     w = {}
     tiles_plain(chunk, w)
     times["g"] = (k_ms, p_ms, _bound(pk_g, opts_g, w, tpx.numel() * 12, tpx.numel() * 8 + 128))
+    del w
     for key, (k_ms, p_ms, bnd) in times.items():
         print(f"  {key}: one {chunk}-sample launch: kernel {k_ms:.3f} ms, plain version "
               f"{p_ms:.1f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})")
+    # K6 at the adaptive leg's own dispatches (phase 9): the warm-up, once a
+    # leg, and a round, 23 times a leg; the round's counts against the
+    # emulation; a pixel-sample of the round beside one of the full-frame
+    # NEE launch with the leg's options (no antialiasing, sobol)
+    k6 = {}
+    for which in ("warmup", "round"):
+        k6[which], err, w = _time_dispatch(f"K6 {which}", pk_g, opts_g, device, seed,
+                                           _adaptive_tiles(device, which))
+        errs["g"] = max(errs["g"], err)
+        if which == "round":
+            ids_r, bases_r, rpx, rpy, n_r = _adaptive_tiles(device, which)
+            _visibility("K6 round", pk_g, opts_g, device, seed, n_r, w,
+                        k6[which][2], k6[which][2], tiles=(torch.cat([ids_r, bases_r]), rpx, rpy))
+        del w
+    nee_ms = _time_ms(lambda: mk.KERNEL(pk_g, opts_g, seed, 1, chunk, device), reps=3)
+    round_ps = k6["round"][0] / (rpx.numel() * n_r)
+    nee_ps = nee_ms / (pix.numel() * chunk)
+    print(f"  K6 round {round_ps * 1e6:.4f} ns a pixel-sample against the full-frame nee "
+          f"variant's {nee_ps * 1e6:.4f} ns ({nee_ms:.4f} ms a {chunk}-sample launch): "
+          f"x{round_ps / nee_ps:.4f} (a tile-specific loss above x{K6_TILE_LOSS})")
 
     # 7. quality leg
     print("[7] quality leg: cornell_golden.txt, NEE + sobol + antialias, 1000 spp")
@@ -1173,6 +1308,19 @@ def main() -> int:
 
     k1b_launches = sum(leg_launches["glass+dof"].values()) + sum(
         leg_launches["reference parity"].values())
+    # K6's loss over the adaptive legs' launches (a warm-up, then rounds),
+    # each at its own dispatch's time and bound
+    k6_loss = 0.0
+    for leg, launches, times_k6 in (("golden NEE", sum(ada_launches.values()), k6),
+                                    ("env exact", env["adaptive_launches"], env["k6"])):
+        loss = sum((n * (times_k6[which][0] - times_k6[which][2][0]))
+                   for which, n in (("warmup", 1), ("round", launches - 1)))
+        k6_loss += loss
+        print(f"  K6, {leg} adaptive leg: {launches} launches (1 warm-up "
+              f"{times_k6['warmup'][0]:.4f} ms, bound {times_k6['warmup'][2][0]:.4f}; "
+              f"{launches - 1} rounds {times_k6['round'][0]:.4f} ms, bound "
+              f"{times_k6['round'][2][0]:.4f}): launches x (time - bound) {loss:.3f} ms")
+    print(f"  K6 over both adaptive legs: launches x (time - bound) {k6_loss:.3f} ms")
     print(json.dumps({"kernels": [
         mk_entry("K1 megakernel", 2393, main_launches, max_abs_err, (ms, plain_ms, k1_bound)),
         mk_entry("K1b megakernel[refraction,dof,early_exit,throughput]", 1510, k1b_launches,
@@ -1188,7 +1336,7 @@ def main() -> int:
                  max(env["errs"][k] for k in ("split composite", "split aa")),
                  env["times"]["split composite"]),
         mk_entry("K6 megakernel[tiles]", 2173, sum(ada_launches.values()) + env["adaptive_launches"],
-                 max(errs["g"], env["errs"]["exact tiles"]), times["g"]),
+                 max(errs["g"], env["errs"]["exact tiles"]), k6["round"]),
         mesh_entry("K7 mesh_intersect[full]", "K7", meshes["k7_launches"]),
         mesh_entry("K8 mesh_intersect[tmin]", "K8", meshes["k8_launches"]),
     ]}))

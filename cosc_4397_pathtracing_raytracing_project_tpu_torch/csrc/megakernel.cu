@@ -14,9 +14,9 @@
 // emitters with the balance heuristic, and an equirectangular environment
 // map (kernels K3-K5 of the TPU kernel's feature split).
 //
-// Compile-time variants: pt_megakernel<NEE, REFR, DOF, LEGACY, TILES, ENV>,
-// one instantiation per valid combination, so the main path's variant
-// <false x5, 0> carries none of the others' registers. TILES renders K
+// Compile-time variants: pt_megakernel<NEE, REFR, DOF, LEGACY, TILES, ENV,
+// SAMPLES>, one instantiation per valid combination, so the main path's
+// variant <false x5, 0, false> carries none of the others' registers. TILES renders K
 // chosen tiles (the adaptive sampler's dispatch): pixel index p renders lane
 // p % tile of grid step g = p / tile, whose pixel coordinates come from
 // px/py, hash tile key and 1-based iteration base from the device table
@@ -51,6 +51,23 @@
 // throughput with LEGACY). The kernel writes the [N,3] buffer the wrapper
 // allocates; it never adds into the accumulator.
 //
+// The tile dispatch's queue items. A launch ends when its last lane ends,
+// and a lane that took a pixel renders all its samples in series: the
+// adaptive sampler's rounds (162 tile slots x 16 samples, 2.8 pixels a
+// resident lane) lost 15% a pixel-sample to that tail against a full-frame
+// launch on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). So where a
+// dispatch gives the resident lanes fewer than 8 pixels each, the wrapper
+// picks SAMPLES, an instantiation of its own (the whole-pixel dispatch
+// keeps its code): the queue hands out (pixel, sample group) items of
+// `group` samples, a divisor of num_samples that gives every resident lane
+// 8 items. Item i renders samples (i / pixels) * group .. of pixel
+// i % pixels with their own iterations and streams, as before, and each
+// sample settles into a unit of its own, units[(s * pixels + pixel) * 3]
+// (with an exact environment 6 floats: the path's radiance, then its escape
+// term), which pt_fold_samples then sums in ascending sample order: the adds
+// of a lane's running sum, so the output stays bit for bit. A hoisted
+// primary hit is traced once an item.
+//
 // Schedule. The grid holds as many blocks as the card keeps resident (fewer
 // for a small frame). Each warp takes 32 pixels at a time from a queue (lane
 // 0 adds 32 to a counter that the launcher zeroes on the stream before the
@@ -74,20 +91,39 @@
 // Visibility rays. At a diffuse vertex NEE casts a ray toward a point on an
 // area light, env NEE one along its row's direction and the split one
 // toward each sun above the normal, all from the origin of the extension
-// ray. The light and env rays are traced there, each in its own loop over
-// the primitives (occluded_any). The sun rays are not: shading records the
-// mask of suns and the factors of their terms, and the next iteration's
-// trace tests them in the loop over the primitives that traces the
-// extension ray (trace), sharing its origin's transform, slab offsets and
-// c, with each sun's object-space direction and reciprocals read from the
-// launch's sun table; the terms are then added, suns 0 .. S-1, before
-// anything the next vertex adds. Each test keeps the float expressions of
-// the JAX kernel's occluded_any, a ray is occluded if any test says so, and
-// the sum adds in the plain version's order, so the output stays bit for
-// bit. A path whose last vertex (trace depth reached) cast sun rays tests
-// them in one more iteration of its own, then settles. Carried the same
-// way, in the trace's loop or by the whole warp at once, the light and env
-// rays measured slower on an H100 than traced at the vertex (PERF.md).
+// ray. The env ray is traced there, in its own loop over the primitives
+// (occluded_any). The sun rays are not: shading records the mask of suns
+// and the factors of their terms, and the next iteration's trace tests them
+// in the loop over the primitives that traces the extension ray (trace),
+// sharing its origin's transform, slab offsets and c, with each sun's
+// object-space direction and reciprocals read from the launch's sun table;
+// the terms are then added, suns 0 .. S-1, before anything the next vertex
+// adds. A path whose last vertex (trace depth reached) cast sun rays tests
+// them in one more iteration of its own, then settles. Each test keeps the
+// float expressions of the JAX kernel's occluded_any, and a ray is occluded
+// if any test says so.
+//
+// The light rays go through a queue. A quarter of a warp's lanes cast one in
+// a typical iteration, so a loop over the primitives at the vertex ran at a
+// SIMT efficiency of 0.28 (NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+// Instead a lane that casts one stages the ray (origin, direction, limit)
+// and its term (the throughput times the albedo, the MIS-weighted light
+// factor and the light's radiance), and at the end of the iteration, after
+// its samples have settled, the warp's new rays join a queue of 64 entries
+// in shared memory in lane order (one ballot). While 32 or more are
+// pending, the warp tests the 32 oldest in one pass, lane i ray i through
+// occluded_any, the geom index uniform across the warp; each lane then adds
+// the terms of its own unoccluded rays, oldest first: to its sum if it
+// still renders the ray's pixel (with SAMPLES, its sample), else to out[p]
+// (the sample's unit), which it wrote itself and which no other warp
+// touches. A warp
+// tests the rays still pending in one last pass before it exits. The term
+// thus joins the pixel's sum after the path's later terms, not before them
+// as in the plain version: a different float grouping of the same terms
+// (within the kernel-vs-plain bound; ROADMAP Queue 3), and, since when a
+// pass runs depends on the pixels the warp took from the queue, one that
+// may differ between launches in the last bits. Every variant without NEE
+// is unchanged, bit for bit.
 
 // Random numbers are the same streams as the JAX package's interpret-mode
 // oracle: the LD lattice (_ld_shift, _sobol_scalar_pair, _lk, _ld_u01,
@@ -149,25 +185,33 @@
 #define PT_LF 26  // floats per light row: A(9) translation(3) A^-T(9) |det A| Le(3) pdf
 #define PT_MAX_SUNS 32
 #define PT_BLOCK 128
+#define PT_WARPS (PT_BLOCK / 32)
+// a warp's queue of light rays (NEE): entries, and floats an entry (origin,
+// direction, limit, term rgb); where the term goes is kept beside them
+#define PT_QUEUE 64
+#define PT_QF 10
 
 // Work counters. A build with -DPT_MEGA_COUNT adds up, per launch, the warp
 // iterations of the bounce loop (work[0]), the lanes active in them
 // (work[1]) and the iterations in which both draw branches ran, the LD
 // branch on some lanes and the hash branch on others (work[2]): the SIMT
 // efficiency of the loop is work[1] / (32 work[0]). Then the visibility
-// rays: the warp iterations in which some lane tests an area-light ray
-// (work[3]), an env NEE ray (work[4]) or sun rays (work[5]), the lanes that
-// test sun rays in them (work[6]), and the rays of each kind, light, env and
-// sun (work[7..9]); a lane tests at most one light and one env ray an
-// iteration, so the light and env loops' SIMT efficiency is work[7] /
-// (32 work[3]) and work[8] / (32 work[4]). The production build keeps none
-// of it.
+// rays: the warp iterations in which some lane casts an area-light ray
+// (work[3]) or an env NEE ray (work[4]) or tests sun rays (work[5]), the
+// lanes that test sun rays in them (work[6]), and the rays of each kind,
+// light, env and sun (work[7..9]); a lane casts at most one light and one
+// env ray an iteration, so the env loop's SIMT efficiency is work[8] /
+// (32 work[4]). The light rays' queue: the passes that test them (work[10])
+// and the rays tested in them (work[11], the light passes' SIMT efficiency
+// work[11] / (32 work[10])), the last passes of warps that exit with fewer
+// than 32 pending (work[12]), and the rays tested after their lane wrote
+// out their pixel (work[13]). The production build keeps none of it.
 #ifdef PT_MEGA_COUNT
 #define PT_MEGA_COUNTS true
 #else
 #define PT_MEGA_COUNTS false
 #endif
-#define PT_MEGA_WORK 10
+#define PT_MEGA_WORK 14
 // 7 resident blocks of PT_BLOCK threads an SM: at most 72 registers a
 // thread. Against the compiler's own choice (64-96 registers, no spill) this
 // measured 0-4% faster in every variant on an H100, though some variants
@@ -251,7 +295,9 @@ using EnvArg = typename std::conditional<
     ENV == 0, NoEnv, typename std::conditional<ENV == 3, EnvSplit, EnvExact>::type>::type;
 
 struct Options {
-  int n;
+  int n;       // queue items: pixels, or with SAMPLES (pixel, sample group) pairs
+  int pixels;  // pixels of the launch
+  int group;   // samples an item renders (SAMPLES; num_samples elsewhere)
   int width;
   int height;
   uint32_t seed;
@@ -945,7 +991,7 @@ static __device__ __forceinline__ void sh9_eval(const EnvSplit& e, float x, floa
   for (int c = 0; c < 3; ++c) rgb[c] = sh9_channel(e.sh + 9 * c, b);
 }
 
-template <bool NEE, bool REFR, bool DOF, bool LEGACY, bool TILES, int ENV>
+template <bool NEE, bool REFR, bool DOF, bool LEGACY, bool TILES, int ENV, bool SAMPLES>
 __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
     pt_megakernel(const __grid_constant__ Options o, const __grid_constant__ SceneTables sc,
                   const __grid_constant__ LightsArg<NEE> lt, const __grid_constant__ TilesArg<TILES> ta,
@@ -956,6 +1002,7 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
   static_assert(ENV == 0 || !LEGACY, "an environment requires gather_mode='light_only'");
   static_assert(!(NEE && (ENV == 1 || ENV == 2)), "exact env excludes analytic NEE");
   static_assert(!(TILES && ENV >= 2), "the tile dispatch carries only exact env");
+  static_assert(TILES || !SAMPLES, "sample-group items are the tile dispatch's");
   constexpr bool kExact = ENV == 1 || ENV == 2;
   constexpr bool kCarryPdf = NEE || ENV == 2;
   constexpr unsigned kFull = 0xffffffffu;
@@ -981,6 +1028,14 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
   if constexpr (NEE) {
     for (int i = threadIdx.x; i < lt.count; i += PT_BLOCK) s_lights[i] = lt.rows[i];
   }
+  // NEE: each warp's queue of light rays, field f of entry e at
+  // lq[f * PT_QUEUE + e]; lqp[e] where its term goes, the pixel index p (with
+  // SAMPLES its sample's unit; -1 - p once the ray is found occluded); per
+  // lane, the entries it owns (bit e)
+  constexpr int kQueue = NEE ? PT_QUEUE : 1;
+  __shared__ float s_lq[PT_WARPS * PT_QF * kQueue];
+  __shared__ int s_lqp[PT_WARPS * kQueue];
+  __shared__ unsigned long long s_lown[NEE ? PT_BLOCK : 1];
   // ENV 3: the sun table, sized by the launcher (6 floats a sun and geom)
   extern __shared__ float s_sun[];
   if constexpr (ENV == 3) fill_sun_table(sc, env, s_sun);
@@ -993,9 +1048,10 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
   bool drained = false;
 
   // the lane's pixel: index p in the kernel's pixel order, its keys, the
-  // sample s it is on and the sum of its settled samples
+  // sample s it is on and the sum of its settled samples; with SAMPLES the
+  // end of the item's samples (s_end)
   bool has_px = false;
-  int p = 0, s = 0, iter_base = 0;
+  int p = 0, s = 0, iter_base = 0, s_end = 0;
   uint32_t pid = 0u, tile_id = 0u;  // global pixel id py*W + px (LD lattice), hash tile
   HashPrng prng;
   prng.lane = 0u;
@@ -1027,6 +1083,87 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
 
   unsigned long long cnt[PT_MEGA_WORK] = {};
 
+  // SAMPLES: the tile dispatch's queue items are (pixel, sample group)
+  // pairs, and each sample settles into a unit of its own, s * pixels +
+  // pixel, which pt_fold_samples sums in sample order after the launch
+  // the lane's sample is the first of its item
+  auto first_sample = [&]() -> bool {
+    if constexpr (SAMPLES) {
+      return s == s_end - o.group;
+    } else {
+      return s == 0;
+    }
+  };
+  // where the lane's current terms settle: its pixel, or its sample's unit
+  auto unit = [&]() -> int { return SAMPLES ? s * o.pixels + p : p; };
+
+  // NEE: the light ray the lane cast this iteration, staged in registers
+  // until the warp queues it: direction, limit, term rgb and (SAMPLES) the
+  // unit its term goes to, taken before the sample settles; its origin is
+  // the lane's next origin, ox/oy/oz. (Staged in shared memory instead, it
+  // measured 2% slower on K2, NVIDIA H100 80GB HBM3 at 700 W, PERF.md.)
+  // Then the warp's queue: its oldest entry and the entries pending.
+  bool l_cast = false;
+  float lst[8] = {};
+  int lq_head = 0, lq_count = 0;
+  float* const lq = s_lq + (threadIdx.x >> 5) * PT_QF * kQueue;
+  int* const lqp = s_lqp + (threadIdx.x >> 5) * kQueue;
+  if constexpr (NEE) s_lown[threadIdx.x] = 0ull;
+
+  // Test the n oldest queued light rays, lane i ray i, then add each lane's
+  // unoccluded terms, oldest first: to its sum while it still renders the
+  // ray's pixel (with SAMPLES, its sample), else to out[] at the entry's
+  // index, which the lane wrote out itself. Every lane of the warp calls
+  // it, with the same n (1-32).
+  auto test_lights = [&](int n) {
+    if (lane_id < n) {
+      const int e = (lq_head + lane_id) & (PT_QUEUE - 1);
+      if (occluded_any(sc, lq[0 * PT_QUEUE + e], lq[1 * PT_QUEUE + e], lq[2 * PT_QUEUE + e],
+                       lq[3 * PT_QUEUE + e], lq[4 * PT_QUEUE + e], lq[5 * PT_QUEUE + e],
+                       lq[6 * PT_QUEUE + e]))
+        lqp[e] = -1 - lqp[e];
+    }
+    __syncwarp();
+    // the pass's entries lq_head .. lq_head+n-1 (mod 64), rotated so that
+    // bit i is entry lq_head + i
+    const unsigned long long window = (1ull << n) - 1ull;
+    const unsigned long long mine = s_lown[threadIdx.x];
+    const unsigned long long rot =
+        lq_head == 0 ? mine : ((mine >> lq_head) | (mine << (PT_QUEUE - lq_head)));
+    s_lown[threadIdx.x] =
+        mine & ~(lq_head == 0 ? window
+                              : ((window << lq_head) | (window >> (PT_QUEUE - lq_head))));
+    const int held = has_px ? unit() : -1;
+    for (unsigned long long todo = rot & window; todo != 0ull; todo &= todo - 1ull) {
+      const int e = (lq_head + __ffsll((long long)todo) - 1) & (PT_QUEUE - 1);
+      const int pe = lqp[e];
+      const int pix = pe >= 0 ? pe : -1 - pe;
+      const bool late = pix != held;
+      if (PT_MEGA_COUNTS && late) cnt[13] += 1ull;
+      if (pe >= 0) {
+        const float tr = lq[7 * PT_QUEUE + e], tg = lq[8 * PT_QUEUE + e],
+                    tb = lq[9 * PT_QUEUE + e];
+        if (late) {
+          out[pix * 3 + 0] = out[pix * 3 + 0] + tr;
+          out[pix * 3 + 1] = out[pix * 3 + 1] + tg;
+          out[pix * 3 + 2] = out[pix * 3 + 2] + tb;
+        } else {
+          acc_r = acc_r + tr;
+          acc_g = acc_g + tg;
+          acc_b = acc_b + tb;
+        }
+      }
+    }
+    if (PT_MEGA_COUNTS && lane_id == 0) {
+      cnt[10] += 1ull;
+      cnt[11] += (unsigned long long)n;
+      if (n < 32) cnt[12] += 1ull;
+    }
+    __syncwarp();
+    lq_head = (lq_head + n) & (PT_QUEUE - 1);
+    lq_count -= n;
+  };
+
   // Lanes without a pixel take the next ones of the warp's chunk, in lane
   // order; when the chunk runs out, lane 0 takes the next 32 pixels of the
   // queue with one atomic. Every lane of the warp calls it.
@@ -1057,16 +1194,24 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
         acc_g = 0.0f;
         acc_b = 0.0f;
         if constexpr (TILES) {
+          if constexpr (SAMPLES) {
+            // queue item i: pixel i % pixels, samples (i / pixels) * group ..
+            const int item = p;
+            p = item % o.pixels;
+            s = (item / o.pixels) * o.group;
+            s_end = s + o.group;
+          }
           const int g = p / o.tile;
           pid = (uint32_t)((int)ta.py[p] * o.width + (int)ta.px[p]);
           tile_id = (uint32_t)ta.tiles[g];
           iter_base = ta.tiles[ta.k + g];
+          prng.lane = (uint32_t)(p % o.tile);
         } else {
           pid = (uint32_t)p;
           tile_id = (uint32_t)(p / o.tile);
           iter_base = o.iter_base;
+          prng.lane = (uint32_t)(p % o.tile);
         }
-        prng.lane = (uint32_t)(p % o.tile);
       }
       q_next += min(__popc(need), avail);
       need = __ballot_sync(kFull, !has_px);
@@ -1095,8 +1240,8 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
         start = false;
         const uint32_t it = (uint32_t)(iter_base + s);
         depth = 0;
-        // with the primary hit hoisted, only the pixel's first sample traces it
-        need_trace = !hoisted || s == 0;
+        // with the primary hit hoisted, only the item's first sample traces it
+        need_trace = !hoisted || first_sample();
         if (need_trace) {
           float fx, fy;  // the pixel's coordinates
           if constexpr (TILES) {
@@ -1182,7 +1327,7 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
       if constexpr (ENV != 3) {
         if (need_trace) {
           h = trace<REFR, false>(sc, ox, oy, oz, dx, dy, dz, true, vs.mask, nullptr, 0, 0u);
-          if (hoisted && s == 0 && depth == 0) h0 = h;
+          if (hoisted && depth == 0 && first_sample()) h0 = h;
         }
       } else {
         // the extension ray from the lane's vertex (if it has one) and the
@@ -1195,7 +1340,7 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
                                                    vs.mask, s_sun, env.num_suns, sun_union);
           if (need_trace) {
             h = hit;
-            if (hoisted && s == 0 && depth == 0) h0 = h;
+            if (hoisted && depth == 0 && first_sample()) h0 = h;
           }
         }
         if (cast != 0u) {
@@ -1443,18 +1588,24 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
               const float wix = tox * rdist, wiy = toy * rdist, wiz = toz * rdist;
               const float cos_s = nx * wix + ny * wiy + nz * wiz;
               const float cos_l2 = -(ln[0] * wix + ln[1] * wiy + ln[2] * wiz);
-              if (PT_MEGA_COUNTS) c_light = (cos_s > 0.0f) && (cos_l2 > 0.0f) && (dist > 1e-4f);
-              if ((cos_s > 0.0f) && (cos_l2 > 0.0f) && (dist > 1e-4f) &&
-                  !occluded_any(sc, hx, hy, hz, wix, wiy, wiz, dist - jmax(1e-3f, 1e-3f * dist))) {
+              if ((cos_s > 0.0f) && (cos_l2 > 0.0f) && (dist > 1e-4f)) {
+                // the ray and its term wait in the warp's queue (above)
                 const float diffuse_prob = 1.0f - m_refl;
                 const float p_brdf_area = diffuse_prob * jmax(cos_s, 0.0f) * kInvPi *
                                           jmax(cos_l2, 0.0f) * (1.0f / jmax(d2, 1e-12f));
                 const float w_mis = pdf_a * (1.0f / jmax(pdf_a + p_brdf_area, 1e-20f));
                 const float geomf = cos_s * cos_l2 * (1.0f / jmax(d2 * pdf_a, 1e-20f));
                 const float k_d = diffuse_prob * kInvPi * geomf * w_mis;
-                rad_r = rad_r + cr * m_cr * k_d * l.le[0];
-                rad_g = rad_g + cg * m_cg * k_d * l.le[1];
-                rad_b = rad_b + cb * m_cb * k_d * l.le[2];
+                l_cast = true;
+                c_light = true;
+                lst[0] = wix;
+                lst[1] = wiy;
+                lst[2] = wiz;
+                lst[3] = dist - jmax(1e-3f, 1e-3f * dist);
+                lst[4] = cr * m_cr * k_d * l.le[0];
+                lst[5] = cg * m_cg * k_d * l.le[1];
+                lst[6] = cb * m_cb * k_d * l.le[2];
+                if constexpr (SAMPLES) lst[7] = __int_as_float(unit());
               }
             }
           }
@@ -1574,22 +1725,49 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
         // or an emitter, before any draw) ends so in every sample of the
         // pixel, with the same radiance: the lane settles them all here, one
         // after the other in the same expressions, and its pixel is done.
-        const int repeat = (hoisted && depth == 0 && !reach) ? o.num_samples - s : 1;
-        for (int k = 0; k < repeat; ++k) {
-          acc_r = acc_r + sr;
-          acc_g = acc_g + sg;
-          acc_b = acc_b + sb;
-          if (escaped) {
-            acc_r = acc_r + er;
-            acc_g = acc_g + eg;
-            acc_b = acc_b + eb;
+        const int s_last = SAMPLES ? s_end : o.num_samples;
+        const int repeat = (hoisted && depth == 0 && !reach) ? s_last - s : 1;
+        if constexpr (SAMPLES) {
+          // each sample's unit: the terms the light queue added while it
+          // ran, then its path's; beside them, an exact environment's
+          // escape term, which the fold adds next
+          for (int k = 0; k < repeat; ++k) {
+            const int u = (s + k) * o.pixels + p;
+            if constexpr (kExact) {
+              out[u * 6 + 0] = acc_r + sr;
+              out[u * 6 + 1] = acc_g + sg;
+              out[u * 6 + 2] = acc_b + sb;
+              out[u * 6 + 3] = escaped ? er : 0.0f;
+              out[u * 6 + 4] = escaped ? eg : 0.0f;
+              out[u * 6 + 5] = escaped ? eb : 0.0f;
+            } else {
+              out[u * 3 + 0] = acc_r + sr;
+              out[u * 3 + 1] = acc_g + sg;
+              out[u * 3 + 2] = acc_b + sb;
+            }
+            acc_r = 0.0f;
+            acc_g = 0.0f;
+            acc_b = 0.0f;
+          }
+        } else {
+          for (int k = 0; k < repeat; ++k) {
+            acc_r = acc_r + sr;
+            acc_g = acc_g + sg;
+            acc_b = acc_b + sb;
+            if (escaped) {
+              acc_r = acc_r + er;
+              acc_g = acc_g + eg;
+              acc_b = acc_b + eb;
+            }
           }
         }
         s += repeat;
-        if (s == o.num_samples) {
-          out[p * 3 + 0] = acc_r;
-          out[p * 3 + 1] = acc_g;
-          out[p * 3 + 2] = acc_b;
+        if (s == s_last) {
+          if constexpr (!SAMPLES) {
+            out[p * 3 + 0] = acc_r;
+            out[p * 3 + 1] = acc_g;
+            out[p * 3 + 2] = acc_b;
+          }
           has_px = false;
         } else {
           start = true;
@@ -1610,12 +1788,56 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
       cnt[8] += c_env ? 1ull : 0ull;
       cnt[9] += (unsigned long long)__popc(c_sun);
     }
+    if constexpr (NEE) {
+      // the iteration's light rays join the warp's queue in lane order, from
+      // the vertex that cast them (the lane's origin now); a full pass's
+      // worth of pending rays is tested at once
+      const unsigned cast = __ballot_sync(kFull, l_cast);
+      if (cast != 0u) {
+        if (l_cast) {
+          const int e = (lq_head + lq_count + __popc(cast & lanes_below)) & (PT_QUEUE - 1);
+          lq[0 * PT_QUEUE + e] = ox;
+          lq[1 * PT_QUEUE + e] = oy;
+          lq[2 * PT_QUEUE + e] = oz;
+#pragma unroll
+          for (int f = 0; f < 7; ++f) lq[(3 + f) * PT_QUEUE + e] = lst[f];
+          lqp[e] = SAMPLES ? __float_as_int(lst[7]) : p;
+          s_lown[threadIdx.x] |= 1ull << e;
+          l_cast = false;
+        }
+        lq_count += __popc(cast);
+        __syncwarp();
+        if (lq_count >= 32) test_lights(32);
+      }
+    }
     refill();
+  }
+  // the light rays still queued, in one last pass
+  if constexpr (NEE) {
+    if (lq_count > 0) test_lights(lq_count);
   }
   if (PT_MEGA_COUNTS) {
     for (int k = 0; k < PT_MEGA_WORK; ++k)
       if (cnt[k]) atomicAdd(work + k, cnt[k]);
   }
+}
+
+// The tile dispatch with its samples split over items: each pixel's sum of
+// its per-sample units (3 floats, or 6 with the exact environment's escape
+// term after the path's), in ascending sample order: the adds of a lane's
+// running sum, and of the plain version's, in the same order.
+__global__ void pt_fold_samples(const float* __restrict__ units, float* __restrict__ out,
+                                int pixels, int samples, int stride) {
+  const int i = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= pixels * 3) return;
+  const int q = i / 3, c = i - 3 * q;
+  float acc = 0.0f;
+  for (int s = 0; s < samples; ++s) {
+    const float* u = units + ((size_t)s * pixels + q) * stride;
+    acc = acc + u[c];
+    if (stride == 6) acc = acc + u[3 + c];
+  }
+  out[i] = acc;
 }
 
 // The launch's scratch: the pixel queue's counter (zeroed on the stream
@@ -1627,10 +1849,10 @@ struct Queue {
   int* owners;
 };
 
-template <bool NEE, bool REFR, bool DOF, bool LEGACY, bool TILES, int ENV>
+template <bool NEE, bool REFR, bool DOF, bool LEGACY, bool TILES, int ENV, bool SAMPLES>
 static int launch_variant(const Options& o, const SceneTables& t, const LightTable& lights,
                           const TileArgs& tiles, const EnvExact& exact, const EnvSplit& split,
-                          float* out, const Queue& q, cudaStream_t stream) {
+                          float* out, float* units, const Queue& q, cudaStream_t stream) {
   LightsArg<NEE> lt;
   TilesArg<TILES> ta;
   EnvArg<ENV> env;
@@ -1640,7 +1862,7 @@ static int launch_variant(const Options& o, const SceneTables& t, const LightTab
   if constexpr (ENV == 3) env = split;
   // a persistent grid: as many blocks as the card holds at once (fewer for a
   // small frame), each warp taking pixels from the queue until it runs dry
-  auto kernel = pt_megakernel<NEE, REFR, DOF, LEGACY, TILES, ENV>;
+  auto kernel = pt_megakernel<NEE, REFR, DOF, LEGACY, TILES, ENV, SAMPLES>;
   // ENV 3: the sun table in dynamic shared memory (48 KB at 32 suns and 64
   // geoms; past the default 48 KB a block only by opting in, which fails,
   // and the launch with it, where the card cannot hold the table)
@@ -1657,11 +1879,19 @@ static int launch_variant(const Options& o, const SceneTables& t, const LightTab
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidValue;
   const int blocks = min(per_sm * sms, (o.n + PT_BLOCK - 1) / PT_BLOCK);
-  kernel<<<blocks, PT_BLOCK, smem, stream>>>(o, t, lt, ta, env, out, q.queue, q.work, q.owners);
+  kernel<<<blocks, PT_BLOCK, smem, stream>>>(o, t, lt, ta, env, SAMPLES ? units : out, q.queue,
+                                             q.work, q.owners);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !SAMPLES) return (int)err;
+  const int stride = (ENV == 1 || ENV == 2) ? 6 : 3;
+  pt_fold_samples<<<(o.pixels * 3 + 255) / 256, 256, 0, stream>>>(units, out, o.pixels,
+                                                                  o.num_samples, stride);
   return (int)cudaGetLastError();
 }
 
-// Variant bits: 1 NEE, 2 REFR, 4 DOF, 8 LEGACY, 16 TILES, ENV in bits 5-6.
+// Variant bits: 1 NEE, 2 REFR, 4 DOF, 8 LEGACY, 16 TILES, ENV in bits 5-6;
+// a tile variant comes twice, with whole-pixel and with sample-group items
+// (SAMPLES).
 constexpr bool valid_variant(int f) {
   const bool nee = (f & 1) != 0, legacy = (f & 8) != 0, tiles = (f & 16) != 0;
   const int env = f >> 5;
@@ -1670,22 +1900,58 @@ constexpr bool valid_variant(int f) {
 }
 
 template <int F>
-static int launch_flags(int flags, const Options& o, const SceneTables& t,
+static int launch_flags(int flags, bool samples, const Options& o, const SceneTables& t,
                         const LightTable& lights, const TileArgs& tiles, const EnvExact& exact,
-                        const EnvSplit& split, float* out, const Queue& q,
+                        const EnvSplit& split, float* out, float* units, const Queue& q,
                         cudaStream_t stream) {
   if constexpr (valid_variant(F)) {
     if (flags == F) {
+      if constexpr ((F & 16) != 0) {
+        if (samples)
+          return launch_variant<(F & 1) != 0, (F & 2) != 0, (F & 4) != 0, (F & 8) != 0, true,
+                                (F >> 5), true>(o, t, lights, tiles, exact, split, out, units,
+                                                q, stream);
+      }
       return launch_variant<(F & 1) != 0, (F & 2) != 0, (F & 4) != 0, (F & 8) != 0,
-                            (F & 16) != 0, (F >> 5)>(o, t, lights, tiles, exact, split, out,
-                                                     q, stream);
+                            (F & 16) != 0, (F >> 5), false>(o, t, lights, tiles, exact, split,
+                                                            out, units, q, stream);
     }
   }
   if constexpr (F + 1 < 128) {
-    return launch_flags<F + 1>(flags, o, t, lights, tiles, exact, split, out, q, stream);
+    return launch_flags<F + 1>(flags, samples, o, t, lights, tiles, exact, split, out, units, q,
+                               stream);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+}
+
+// The blocks of the variant the flags name that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) with `smem` bytes of
+// dynamic shared memory; -1 on an error.
+template <int F>
+static int blocks_flags(int flags, int smem) {
+  if constexpr (valid_variant(F)) {
+    if (flags == F) {
+      auto kernel = pt_megakernel<(F & 1) != 0, (F & 2) != 0, (F & 4) != 0, (F & 8) != 0,
+                                  (F & 16) != 0, (F >> 5), false>;
+      int per_sm = 0;
+      if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+              cudaSuccess ||
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PT_BLOCK, smem) !=
+              cudaSuccess)
+        return -1;
+      return per_sm;
+    }
+  }
+  if constexpr (F + 1 < 128) {
+    return blocks_flags<F + 1>(flags, smem);
+  } else {
+    return -1;
+  }
+}
+
+extern "C" int pt_megakernel_blocks_per_sm(int flags, int smem) {
+  return blocks_flags<0>(flags, smem);
 }
 
 // Packs the scene and light tables into the kernel's by-value parameters and
@@ -1695,12 +1961,16 @@ static int launch_flags(int flags, const Options& o, const SceneTables& t,
 // perm[num_geoms*3], lights[num_lights*26], light_ids[num_lights*2]
 // (kind, material), suns[num_suns*6], sh[27]. Device pointers, with
 // num_tiles > 0 (then n = num_tiles * tile): tiles[2*num_tiles], px[n],
-// py[n]; with env_mode 1-2 (exact, exact + env NEE): env_rad[env_h*env_w*3],
+// py[n], and with group < num_samples (a divisor of it: the samples of a
+// queue item) units[num_samples*n*3] (*6 with env_mode 1), which the kernel
+// writes and pt_fold_samples sums into out; with env_mode 1-2 (exact, exact
+// + env NEE): env_rad[env_h*env_w*3],
 // env_pdf[env_h*env_w], with 2 also env_rows[num_samples*trace_depth*8].
 // env_mode 3 is the split mode (suns, SH, bg_external). `queue` is one
 // device counter that no launch on another stream uses meanwhile (zeroed on
 // `stream` here); `work` (PT_MEGA_WORK counters, zeroed by the caller) and
-// `owners[ceil(n/32)]` are the counting build's and null in any other.
+// `owners[ceil(items/32)]` (items: the queue's, n or n * num_samples / group)
+// are the counting build's and null in any other.
 extern "C" int pt_megakernel_launch(
     float* out, int n, int width, int height, int seed, int iter_base,
     int tile, int num_samples, int trace_depth,
@@ -1709,8 +1979,8 @@ extern "C" int pt_megakernel_launch(
     const float* cam, const float* geo, const float* mats, const int* gmat,
     const int* perm, int num_cubes, int num_geoms, int num_materials,
     const float* lights, const int* light_ids, int num_lights,
-    const int* tiles, const float* px, const float* py, int num_tiles,
-    int env_mode, const float* env_rad, const float* env_pdf, const float* env_rows,
+    const int* tiles, const float* px, const float* py, int num_tiles, int group,
+    float* units, int env_mode, const float* env_rad, const float* env_pdf, const float* env_rows,
     int env_h, int env_w, const float* suns, int num_suns, const float* sh, int bg_external,
     unsigned int* queue, unsigned long long* work, int* owners, void* stream) {
   if (n < 0 || width <= 0 || height <= 0 || tile <= 0 || num_geoms < 0 ||
@@ -1719,6 +1989,9 @@ extern "C" int pt_megakernel_launch(
       (nee && legacy) || (nee && (num_lights <= 0 || num_lights > PT_MAX_LIGHTS || !lights ||
                                   !light_ids)) ||
       num_tiles < 0 || (num_tiles > 0 && (!tiles || !px || !py || n != num_tiles * tile)) ||
+      (num_tiles > 0 && num_samples > 0 &&
+       (group <= 0 || group > num_samples || num_samples % group != 0 ||
+        (group < num_samples && (!units || (long long)n * num_samples > 0x7fffffffLL)))) ||
       env_mode < 0 || env_mode > 3 ||
       ((env_mode == 1 || env_mode == 2) && (!env_rad || !env_pdf || env_h <= 0 || env_w <= 0)) ||
       (env_mode == 2 && !env_rows) ||
@@ -1730,6 +2003,7 @@ extern "C" int pt_megakernel_launch(
   }
   const int flags = (nee ? 1 : 0) | (refraction ? 2 : 0) | (dof ? 4 : 0) | (legacy ? 8 : 0) |
                     (num_tiles > 0 ? 16 : 0) | (env_mode << 5);
+  const bool samples = num_tiles > 0 && group < num_samples;
   if (n == 0 || num_samples <= 0) return 0;
   SceneTables t;
   memset(&t, 0, sizeof(t));
@@ -1768,7 +2042,9 @@ extern "C" int pt_megakernel_launch(
     split.bg_external = bg_external;
   }
   Options o;
-  o.n = n;
+  o.n = num_tiles > 0 ? n * (num_samples / group) : n;
+  o.pixels = n;
+  o.group = num_tiles > 0 ? group : num_samples;
   o.width = width;
   o.height = height;
   o.seed = (uint32_t)seed;
@@ -1782,5 +2058,6 @@ extern "C" int pt_megakernel_launch(
   o.n_ld = n_ld;
   o.sky_strength = sky_strength;
   const Queue q = {queue, work, owners};
-  return launch_flags<0>(flags, o, t, lt, ta, exact, split, out, q, (cudaStream_t)stream);
+  return launch_flags<0>(flags, samples, o, t, lt, ta, exact, split, out, units, q,
+                         (cudaStream_t)stream);
 }

@@ -90,6 +90,9 @@ MAX_LIGHTS = MAX_GEOMS
 # delta suns of env_mode='split' that travel by value (RenderConfig's
 # default env_split_suns is 8)
 MAX_SUNS = 32
+# entries of a warp's queue of light rays in the NEE variants (a warp tests
+# them 32 at a time, and at most 31 wait when an iteration adds 32 more)
+QUEUE_SLOTS = 64
 # Largest map rendered exactly in-kernel: the JAX kernel's VMEM/matmul cap
 # (`megakernel.py:427`), kept so the port takes the megakernel exactly where
 # the JAX package does (the H100 reads the map from device memory and needs
@@ -1604,6 +1607,7 @@ def warp_schedule(
     warps: Optional[int] = None,
     owners: Optional[np.ndarray] = None,
     vis: Optional[dict] = None,
+    group: Optional[int] = None,
 ) -> dict:
     """Emulate the kernel's warps on the plain version's path lengths
     (:func:`path_lengths`; ``steps``/``draws`` [S, N] by sample and by the
@@ -1627,17 +1631,32 @@ def warp_schedule(
     that took each chunk (the counting build records it); without it,
     ``warps`` warps step in lockstep and take chunks in warp order.
 
-    ``vis`` (:func:`path_visibility`) are the paths' visibility rays. Light
-    and env rays are traced in the iteration of the vertex that casts them;
-    sun rays cast at a path's vertex d ride in the lane's next loop
-    iteration, in the trace of the ray leaving that vertex, and those cast
-    at the path's last vertex (trace depth reached) take one more iteration
-    of their own before the sample settles (``added``). The visibility
-    counters (warp iterations in which lanes test light, env or sun rays,
-    the lanes testing sun rays, rays of each kind) are counted there, and
-    are 0 without ``vis``.
+    ``vis`` (:func:`path_visibility`) are the paths' visibility rays. Env
+    rays are traced in the iteration of the vertex that casts them; sun rays
+    cast at a path's vertex d ride in the lane's next loop iteration, in the
+    trace of the ray leaving that vertex, and those cast at the path's last
+    vertex (trace depth reached) take one more iteration of their own before
+    the sample settles (``added``). Light rays join their warp's queue at
+    the end of the iteration that casts them, in lane order, after the
+    iteration's samples have settled; while 32 or more are pending the warp
+    tests the 32 oldest in one pass, a ray a lane, and the warp tests what
+    is left in one last pass once it holds no pixel (``light_exit_passes``).
+    A ray tested after its lane has written out its pixel (settled every
+    sample and handed the lane to another pixel or to none) is late
+    (``light_late``): its term lands in the kernel's output, not in the
+    lane's sum. ``group`` below S is a tile dispatch whose queue items are
+    (pixel, ``group`` samples) pairs (see :func:`tile_group`): the warps
+    serve items as pixels of ``group`` samples, and each sample settles
+    into a unit of its own, so a light ray is late once its sample has
+    settled. The visibility counters (warp iterations in which lanes
+    cast light or env rays or test sun rays, the lanes testing sun rays,
+    rays of each kind, the light passes, their lanes, the exit passes and
+    the late rays) are counted there, and are 0 without ``vis``.
 
-    Returns the counters of :data:`WORK`, ``efficiency``, ``added``,
+    Returns the counters of :data:`WORK`, ``light_pass_sizes`` (the light
+    passes by the rays they test, [33]), ``warp_iters_by_warp`` (each warp's
+    iterations: the last warp's against the mean is the launch's tail),
+    ``efficiency``, ``added``,
     ``settle_iters`` (warp iterations in which some lane settled a sample:
     the per-sample work, such as the exact environment's escape lookup, runs
     in each of them), ``repeated`` (samples settled with an earlier one's
@@ -1648,6 +1667,11 @@ def warp_schedule(
     (``in_order``)."""
     steps = np.asarray(steps, np.int64)
     draws = np.asarray(draws, np.int64)
+    sample_units = group is not None and group < steps.shape[0]
+    if sample_units:
+        steps, draws = item_paths(group, steps, draws)
+        if vis is not None:
+            vis = dict(zip(vis, item_paths(group, *(np.asarray(v) for v in vis.values()))))
     num_samples, n = steps.shape
     zero_vis = dict.fromkeys(WORK[3:], 0)
     if schedule == "thread":
@@ -1658,6 +1682,8 @@ def warp_schedule(
         return dict(
             warp_iters=iters, lane_iters=lanes, both_draws=0, **zero_vis, added=0,
             settle_iters=num_samples * per_warp.shape[1], repeated=0,
+            light_pass_sizes=np.zeros(33, np.int64),
+            warp_iters_by_warp=per_warp.max(axis=2).sum(axis=0),
             efficiency=lanes / (32 * iters) if iters else 1.0,
             lane_of=np.arange(n), visits=np.ones(n, np.int64),
             samples=np.full(n, num_samples, np.int64), in_order=True,
@@ -1689,6 +1715,14 @@ def warp_schedule(
             counts[f"{kind}_rays"] = sum(int(((masks[kind] >> b) & 1).sum())
                                          for b in range(int(steps.max(initial=0))))
         counts["sun_rays"] = int(np.asarray(vis["sun_rays"]).sum())
+    # each warp's queue of pending light rays: a ring of 64 (pixel, lane)
+    # entries, oldest at head
+    q_pix = np.zeros((warps, QUEUE_SLOTS), np.int64)
+    q_lane = np.zeros((warps, QUEUE_SLOTS), np.int64)
+    q_head = np.zeros(warps, np.int64)
+    q_count = np.zeros(warps, np.int64)
+    exited = np.zeros(warps, bool)
+    pass_sizes = np.zeros(33, np.int64)
     pix = np.full((warps, 32), -1, np.int64)
     pend = np.zeros((warps, 32), bool)
     smp = np.zeros((warps, 32), np.int64)
@@ -1735,7 +1769,15 @@ def warp_schedule(
         q_next[:] = np.where(got, base + np.minimum(n_need - take, end - base), q_next + take)
         q_end[:] = np.where(got, end, q_end)
 
+    def unit_of():
+        """Where each lane's terms go: its pixel, or with sample_units its
+        sample's unit (-1 without a pixel)."""
+        if sample_units:
+            return np.where(pix >= 0, pix * num_samples + smp, -1)
+        return pix.copy()
+
     iters = lanes = both = settles = repeated = 0
+    warp_busy = np.zeros(warps, np.int64)
     refill()
     while True:
         held = pix >= 0
@@ -1747,8 +1789,11 @@ def warp_schedule(
         pend &= ~act
         busy = act.any(axis=1)
         iters += int(busy.sum())
+        warp_busy += busy
         lanes += int(act.sum())
         p, sm, d = pix[act], smp[act], dep[act]
+        cast = np.zeros((warps, 32), bool)
+        cast_pix = unit_of()
         if vis is not None:
             # the light and env rays that the lane's vertex casts now, the
             # sun rays that its previous vertex cast
@@ -1759,6 +1804,8 @@ def warp_schedule(
                 counts[f"{kind}_warps"] += int(carry.any(axis=1).sum())
                 if kind == "sun":
                     counts["sun_lanes"] += int(carry.sum())
+                if kind == "light":
+                    cast = carry
         if use_ld:
             reach = np.zeros((warps, 32), bool)
             reach[act] = d < drawn[p, sm]
@@ -1787,11 +1834,42 @@ def warp_schedule(
                 smp[rep] = num_samples
             fin = done & (smp == num_samples)
             pix[fin] = -1
+        if cast.any():
+            # the iteration's light rays join the queue in lane order; then
+            # the 32 oldest are tested if that many are pending
+            slot = (q_head + q_count)[:, None] + np.cumsum(cast, axis=1) - 1
+            w_idx, lane_idx = np.nonzero(cast)
+            s_idx = slot[cast] % QUEUE_SLOTS
+            q_pix[w_idx, s_idx] = cast_pix[cast]
+            q_lane[w_idx, s_idx] = lane_idx
+            q_count += cast.sum(axis=1)
+            full = q_count >= 32
+            if full.any():
+                wf = np.nonzero(full)[0]
+                slots = (q_head[wf, None] + np.arange(32)[None, :]) % QUEUE_SLOTS
+                lane = q_lane[wf[:, None], slots]
+                held = unit_of()[wf[:, None], lane] == q_pix[wf[:, None], slots]
+                counts["light_passes"] += len(wf)
+                counts["light_pass_lanes"] += 32 * len(wf)
+                pass_sizes[32] += len(wf)
+                counts["light_late"] += int((~held).sum())
+                q_head[wf] = (q_head[wf] + 32) % QUEUE_SLOTS
+                q_count[wf] -= 32
         refill()
+        # a warp left without a pixel tests its pending light rays, all late,
+        # in one last pass before it exits
+        leaving = ~(pix >= 0).any(axis=1) & ~exited & (q_count > 0)
+        counts["light_passes"] += int(leaving.sum())
+        counts["light_exit_passes"] += int(leaving.sum())
+        counts["light_pass_lanes"] += int(q_count[leaving].sum())
+        counts["light_late"] += int(q_count[leaving].sum())
+        np.add.at(pass_sizes, q_count[leaving], 1)
+        q_count[leaving] = 0
+        exited |= ~(pix >= 0).any(axis=1)
     return dict(
         warp_iters=iters, lane_iters=lanes, both_draws=both, **counts,
         added=int(extra.sum()) if vis is not None else 0, settle_iters=settles,
-        repeated=repeated,
+        repeated=repeated, light_pass_sizes=pass_sizes, warp_iters_by_warp=warp_busy,
         efficiency=lanes / (32 * iters) if iters else 1.0,
         lane_of=lane_of, visits=visits, samples=settled, in_order=in_order,
     )
@@ -1835,14 +1913,31 @@ class Megakernel:
                 i, i, i, i,  # nee, refraction, dof, legacy
                 p, p, p, p, p, i, i, i,  # scene tables
                 p, p, i,  # light table
-                p, p, p, i,  # tile dispatch
+                p, p, p, i, i, p,  # tile dispatch: tables, count, item samples, units
                 i, p, p, p, i, i,  # environment: mode, radiance, pdf, NEE rows, h, w
                 p, i, p, i,  # split: suns, count, SH, background outside
                 p, p, p,  # pixel queue; work counters and chunk owners (counting build)
                 p,  # stream
             ]
+            occupancy = lib.pt_megakernel_blocks_per_sm
+            occupancy.restype = ctypes.c_int
+            occupancy.argtypes = [i, i]
             self._lib = lib
         return self._lib.pt_megakernel_launch
+
+    def blocks_per_sm(self, opts: KernelOptions, tiles: bool = False, smem: int = 0) -> int:
+        """The blocks of this option set's compile-time variant that one SM
+        of the current device holds at once, with ``smem`` bytes of dynamic
+        shared memory (the env split mode's sun table), as the launcher sizes its
+        persistent grid."""
+        self._fn()
+        flags = (int(opts.nee) | int(opts.refraction) << 1 | int(opts.dof) << 2
+                 | int(opts.legacy) << 3 | int(tiles) << 4
+                 | _ENV_MODES[(opts.env, opts.env_nee)] << 5)
+        blocks = self._lib.pt_megakernel_blocks_per_sm(flags, int(smem))
+        if blocks < 0:
+            raise RuntimeError(f"occupancy query failed for variant {variant_name(opts, tiles)}")
+        return blocks
 
     def __call__(
         self,
@@ -1856,17 +1951,23 @@ class Megakernel:
         env_rows: Optional[torch.Tensor] = None,
         work: Optional[torch.Tensor] = None,
         owners: Optional[torch.Tensor] = None,
+        group: Optional[int] = None,
     ) -> torch.Tensor:
         """Launch over the full frame, or with ``tiles = (table, px, py)``
         over K chosen tiles: ``table`` int32 [2K] (K tile ids, then K
         1-based iteration bases) and ``px``/``py`` f32 [K·tile], all on
-        ``device``. Env NEE reads the shared rows of this launch's
+        ``device``. The tile dispatch's queue items are (pixel, ``group``
+        samples) pairs, ``group`` a divisor of ``num_samples`` that
+        :func:`tile_group` picks unless given; below ``num_samples`` each
+        sample settles into a unit of a scratch tensor, which a second
+        kernel sums in sample order. Env NEE reads the shared rows of this launch's
         iterations, ``env_rows`` [num_samples·trace_depth, 8] on ``device``,
         which are built here before the launch when not given
         (:func:`build_env_nee_rows`). The counting build (:data:`COUNTING`)
         takes ``work``, ``len(WORK)`` int64 counters it adds to, and
-        ``owners``, int32 [ceil(N/32)], where it writes the warp that took
-        each chunk of 32 pixels; any other build raises on them."""
+        ``owners``, int32 [ceil(items/32)], where it writes the warp that
+        took each chunk of 32 queue items (pixels, or the tile dispatch's
+        items); any other build raises on them."""
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"the CUDA megakernel needs a CUDA device, got {device}")
@@ -1892,10 +1993,16 @@ class Megakernel:
         n = packed.width * packed.height
         table = px = py = None
         num_tiles = 0
+        items = n
         if tiles is not None:
             table, px, py = tiles
             num_tiles = table.shape[0] // 2
             n = num_tiles * opts.tile
+            if group is None:
+                group = tile_group(n, num_samples, device)
+            if not (0 < group <= num_samples and num_samples % group == 0):
+                raise ValueError(f"group {group} must divide num_samples {num_samples}")
+            items = n * (num_samples // group)
             for t, dtype in ((table, torch.int32), (px, torch.float32), (py, torch.float32)):
                 if t.device != device or t.dtype != dtype or not t.is_contiguous():
                     raise ValueError(
@@ -1935,12 +2042,16 @@ class Megakernel:
             suns = np.ascontiguousarray(env.suns.reshape(-1), np.float32)
             sh = np.ascontiguousarray(env.sh.reshape(-1), np.float32)
         if owners is not None and (owners.device != device or owners.dtype != torch.int32
-                                   or owners.shape != ((n + 31) // 32,)
+                                   or owners.shape != ((items + 31) // 32,)
                                    or not owners.is_contiguous()):
-            raise ValueError(f"owners must be a contiguous int32 [{(n + 31) // 32}] tensor "
+            raise ValueError(f"owners must be a contiguous int32 [{(items + 31) // 32}] tensor "
                              f"on {device}")
         fn = self._fn()
         out = torch.empty((n, 3), dtype=torch.float32, device=device)
+        units = None
+        if tiles is not None and group < num_samples:
+            units = torch.empty((num_samples * n, 6 if env_mode == 1 else 3),
+                                dtype=torch.float32, device=device)
         ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
         dptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         with torch.cuda.device(device):
@@ -1964,7 +2075,8 @@ class Megakernel:
                 packed.perm.ctypes.data, packed.num_cubes, packed.num_geoms,
                 packed.num_materials,
                 ptr(lights_f), ptr(lights_i), num_lights,
-                dptr(table), dptr(px), dptr(py), num_tiles,
+                dptr(table), dptr(px), dptr(py), num_tiles, int(group or num_samples),
+                dptr(units),
                 env_mode, dptr(rad), dptr(pdf), dptr(rows),
                 env.height if env_mode else 0, env.width if env_mode else 0,
                 ptr(suns), env.num_suns if env_mode == 3 else 0, ptr(sh),
@@ -2000,22 +2112,64 @@ KERNEL = Megakernel()
 COUNTING = Megakernel(NVCC_FLAGS + ("-DPT_MEGA_COUNT",))
 # the counting build's counters: warp iterations of the bounce loop, active
 # lane-iterations in them, iterations that ran both draw branches; warp
-# iterations that test area-light, env NEE or sun visibility rays, the lanes
-# that test sun rays in them, and the rays of each kind
+# iterations that cast area-light or env NEE rays or test sun rays, the lanes
+# that test sun rays in them, and the rays of each kind; the passes that test
+# queued light rays, the rays tested in them, the last passes of warps that
+# exit with fewer than 32 pending, and the rays tested after their pixel was
+# written out
 WORK = ("warp_iters", "lane_iters", "both_draws", "light_warps", "env_warps", "sun_warps",
-        "sun_lanes", "light_rays", "env_rays", "sun_rays")
+        "sun_lanes", "light_rays", "env_rays", "sun_rays", "light_passes", "light_pass_lanes",
+        "light_exit_passes", "light_late")
 # the kernel's schedule, as warp_schedule names it
 SCHEDULE = "regen"
+
+
+# the queue items a resident lane of the tile dispatch should get at least:
+# the launch ends when its last lane has rendered its last item, so fewer
+# and longer items leave lanes idle at the end (the adaptive leg's rounds,
+# 2.8 pixels of 16 samples a lane, lost 15% a pixel-sample to it on an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md)
+ITEMS_PER_LANE = 8
+
+
+def tile_group(pixels: int, num_samples: int, device) -> int:
+    """The samples a queue item of the tile dispatch renders: all of a
+    pixel's where ``pixels`` give each lane the card holds at once (the
+    launch bounds' 7 blocks of 128 an SM) ITEMS_PER_LANE of them, else the
+    largest divisor of ``num_samples`` whose (pixel, group) items do (down
+    to one sample an item)."""
+    sms = torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
+    lanes = sms * 7 * 128
+    for groups in range(1, num_samples + 1):
+        if num_samples % groups == 0 and pixels * groups >= ITEMS_PER_LANE * lanes:
+            return num_samples // groups
+    return 1
+
+
+def item_paths(group: int, *arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
+    """Per-path arrays [S, N] (:func:`path_lengths`, :func:`path_visibility`)
+    of a tile dispatch whose items are (pixel, ``group`` samples) pairs, as
+    [group, (S/group)·N] arrays in the kernel's item order (item g·N + p:
+    pixel p, samples g·group ..), for :func:`warp_schedule`."""
+    out = []
+    for a in arrays:
+        s, n = a.shape
+        out.append(a.reshape(s // group, group, n).transpose(1, 0, 2).reshape(group, -1))
+    return tuple(out)
 
 
 def kernel_warp_work(packed: PackedScene, opts: KernelOptions, seed: int, iter_base: int,
                      num_samples: int, device, **kwargs) -> Tuple[dict, np.ndarray]:
     """One launch of the counting build (:data:`COUNTING`, the other
-    arguments as :class:`Megakernel` takes them): its counts by
-    :data:`WORK`, and the warp that took each chunk of 32 pixels (int32
-    [ceil(N/32)]), for :func:`warp_schedule`."""
+    arguments as :class:`Megakernel` takes them, a tile dispatch's
+    ``group`` included): its counts by :data:`WORK`, and the warp that took
+    each chunk of 32 queue items (int32 [ceil(items/32)]), for
+    :func:`warp_schedule`."""
     tiles = kwargs.get("tiles")
-    n = tiles[1].shape[0] if tiles is not None else packed.width * packed.height
+    n = packed.width * packed.height
+    if tiles is not None:
+        group = kwargs.setdefault("group", tile_group(tiles[1].shape[0], num_samples, device))
+        n = tiles[1].shape[0] * (num_samples // group)
     work = torch.zeros(len(WORK), dtype=torch.int64, device=device)
     owners = torch.full(((n + 31) // 32,), -1, dtype=torch.int32, device=device)
     COUNTING(packed, opts, seed, iter_base, num_samples, device, work=work, owners=owners,

@@ -8,27 +8,33 @@
 With ``--parent DIR`` (a parent commit's checkout, e.g. unpacked with git
 archive into a git-ignored directory), the megakernel leg, or ``--legs ab``
 alone, first compares that checkout's package with this one in one process,
-in turns (parent, change, change, parent): one 50-sample launch of every
-timed variant (K1 main, antialiased and independent, K1b glass + lens + NEE
-and throughput, K2, K3-K5, K6 over 16 tiles, with and without the
-environment, then each other compile-time variant of the megakernel once;
-the median of 20 each) and whether the outputs are bit-identical to the
-parent's, then the main path's rays/s (render(1000), two laps a turn) and
-whether the two images are bit-identical. Each ``--diag`` checkout (a
-diagnostic build: an edited copy of a package) and each ``--ab-flags`` set
-(this checkout's kernel built with those nvcc flags) joins the variants'
-turns, with its ptxas registers and spills.
+in turns (parent, change, change, parent): one launch of every timed
+variant (K1 main, antialiased and independent, K1b glass + lens + NEE and
+throughput, K2 antialiased and with the adaptive leg's options, K3-K5 and
+K6 over 16 tiles, with and without the environment, 50 samples each; K6 at
+the adaptive legs' warm-up and round dispatches, ADAPTIVE_DISPATCH; then
+each other compile-time variant of the megakernel once; the median of 20
+each), whether the outputs are bit-identical to the parent's and, for a
+variant that adds in another order, their share of pixels off by more than
+1e-3 and largest difference, then the main path's rays/s (render(1000), two
+laps a turn) and whether the two images are bit-identical; and a census of
+each side's NEE variant's SASS. Each ``--diag`` checkout (a diagnostic
+build: an edited copy of a package) and each ``--ab-flags`` set (this
+checkout's kernel built with those nvcc flags) joins the variants' turns,
+with its ptxas registers and spills.
 
 The schedule leg (``--legs schedule``, not in the default): the megakernel's
 counting build (warp iterations of the bounce loop, active lane-iterations,
 iterations that ran both draw branches; warp iterations carrying visibility
-rays of each kind and their rays) against the plain version's ray counts
-and against megakernel.warp_schedule's emulation on the plain version's
-path lengths and visibility rays, for the main configuration, glass + lens
-+ NEE, golden + NEE (K2), and env_spheres.txt exact, with env NEE (K4) and
-split (K5), one 50-sample launch at 800×800; then a census of the main
-variant's SASS (cuobjdump -sass) by instruction class, for the function and
-each loop in it, and nvcc's ptxas report.
+rays of each kind and their rays; the passes of the light rays' queue, their
+rays, the exit passes and the late rays) against the plain version's ray
+counts and against megakernel.warp_schedule's emulation on the plain
+version's path lengths and visibility rays, for the main configuration,
+glass + lens + NEE, golden + NEE (K2), and env_spheres.txt exact, with env
+NEE (K4) and split (K5), one 50-sample launch at 800×800, and the adaptive
+leg's round (K6 with NEE); then a census of the main and NEE variants' SASS
+(cuobjdump -sass) by instruction class, for the function and each loop in
+it, and nvcc's ptxas report.
 
 The megakernel legs (``--legs megakernel``), all at 800×800 on
 scenes/cornell.txt, depth 8, seed 0; times from CUDA events, each kernel row
@@ -52,7 +58,8 @@ scenes/cornell.txt, depth 8, seed 0; times from CUDA events, each kernel row
   cornell_golden.txt with NEE, sobol and antialiasing; cornell_glass.txt
   with a 0.3 lens (auto focus), refraction, NEE and sobol; cornell.txt with
   the throughput estimator; the tile dispatch over 16 of golden's 32×64
-  tiles with NEE and sobol;
+  tiles with NEE and sobol, and over the adaptive leg's round (162 tile
+  slots, 16 samples);
 - the NEE quality leg (golden, NEE, sobol, antialias, render(1000)) and the
   adaptive leg (AdaptiveRenderer(golden, NEE + sobol).render(256)), each
   once under torch.profiler: device time per kernel and idle share;
@@ -455,24 +462,36 @@ def measure_schedule(device, out):
     golden = Scene.from_desc(load_scene_desc(os.path.join(REPO, "scenes", "cornell_golden.txt")),
                              device)
     cases = {
-        "main": (cornell, RenderConfig(sampler="sobol")),
+        "main": (cornell, RenderConfig(sampler="sobol"), None),
         "glass_dof_nee": (glass, RenderConfig(enable_refraction=True, dof=True, nee=True,
-                                              sampler="sobol")),
-        "nee_aa": (golden, RenderConfig(nee=True, antialias=True, sampler="sobol")),
-        "env_exact": (env, RenderConfig()),
-        "env_nee": (env, RenderConfig(nee=True)),
-        "split": (env, RenderConfig(env_mode="split")),
+                                              sampler="sobol"), None),
+        "nee_aa": (golden, RenderConfig(nee=True, antialias=True, sampler="sobol"), None),
+        "env_exact": (env, RenderConfig(), None),
+        "env_nee": (env, RenderConfig(nee=True), None),
+        "split": (env, RenderConfig(env_mode="split"), None),
+        "k6_round": (golden, RenderConfig(nee=True, sampler="sobol"),
+                     adaptive_tiles(make_tile_layout, device, "round")),
     }
-    for name, (sc, cfg) in cases.items():
+    for name, (sc, cfg, tl) in cases.items():
         opts = mk.kernel_options(cfg, sc)
         pk = mk.pack_scene(sc, nee=opts.nee, config=cfg)
-        pix = torch.arange(pk.width * pk.height, device=device)
-        counted, owners = mk.kernel_warp_work(pk, opts, SEED, 1, CHUNK, device)
         st = {}
-        mk.render_samples_reference(pix, pk, opts, SEED, 1, CHUNK, stats=st)
+        group = None
+        if tl is None:
+            pix = torch.arange(pk.width * pk.height, device=device)
+            counted, owners = mk.kernel_warp_work(pk, opts, SEED, 1, CHUNK, device)
+            mk.render_samples_reference(pix, pk, opts, SEED, 1, CHUNK, stats=st)
+        else:
+            (table, tpx, tpy), samples = tl
+            k = table.shape[0] // 2
+            group = mk.tile_group(tpx.numel(), samples, device)
+            counted, owners = mk.kernel_warp_work(pk, opts, SEED, 0, samples, device,
+                                                  tiles=tl[0], group=group)
+            mk.render_tiles_reference(tpx, tpy, table[:k], table[k:], pk, opts, SEED, samples,
+                                      stats=st)
         steps, draws = mk.path_lengths(st)
         vis = mk.path_visibility(st)
-        row = dict(counted=counted, steps_per_path=float(steps.mean()),
+        row = dict(counted=counted, group=group, steps_per_path=float(steps.mean()),
                    one_step_paths=float((steps == 1).mean()),
                    plain_rays={k: int(st.get(k, 0)) for k in ("shadow", "env_shadow", "sun_shadow")})
         del st
@@ -482,12 +501,20 @@ def measure_schedule(device, out):
             row[f"{k}_simt"] = lanes / (32 * counted[w]) if counted[w] else None
         row["sun_rays_per_lane"] = (counted["sun_rays"] / counted["sun_lanes"]
                                     if counted["sun_lanes"] else None)
+        # the light rays' queue: the SIMT efficiency of its passes
+        row["light_pass_simt"] = (counted["light_pass_lanes"] / (32 * counted["light_passes"])
+                                  if counted["light_passes"] else None)
         for sched, v in (("thread", None), (mk.SCHEDULE, None), ("vis", vis)):
             em = mk.warp_schedule(steps, draws, "thread" if sched == "thread" else mk.SCHEDULE,
-                                  **mk.schedule_args(opts), vis=v,
-                                  owners=None if sched == "thread" else owners)
+                                  **mk.schedule_args(opts, tl is not None), vis=v,
+                                  owners=None if sched == "thread" else owners,
+                                  group=None if sched == "thread" else group)
             row[sched] = {k: em[k] for k in mk.WORK + ("efficiency", "settle_iters", "repeated",
                                                        "added")}
+            # the launch's tail: each warp's iterations, the busiest against
+            # the mean
+            by_warp = em["warp_iters_by_warp"]
+            row[sched]["warp_iters_mean_max"] = [float(by_warp.mean()), int(by_warp.max())]
         del vis
         row["counted_efficiency"] = counted["lane_iters"] / (32 * counted["warp_iters"])
         # the schedule without visibility rays (the loop counters of a kernel
@@ -497,14 +524,20 @@ def measure_schedule(device, out):
         out[f"schedule_{name}"] = row
         print(name, json.dumps(row), flush=True)
     lib = build.build(mk.KERNEL.name, mk.KERNEL.flags)
-    out["sass_main"] = sass_census(lib, r"pt_megakernelILb0ELb0ELb0ELb0ELb0ELi0E")
-    print("sass main", json.dumps(out["sass_main"]), flush=True)
+    for variant, fn in SASS_VARIANTS.items():
+        out[f"sass_{variant}"] = sass_census(lib, fn)
+        print(f"sass {variant}", json.dumps(out[f"sass_{variant}"]), flush=True)
     out["ptxas"] = build.log_path(mk.KERNEL.name, mk.KERNEL.flags).read_text()
 
 
 # the counting build's rays of each kind, in the order of the plain
 # version's stats 'shadow', 'env_shadow', 'sun_shadow'
 VIS_RAYS = ("light_rays", "env_rays", "sun_rays")
+# the instantiations whose SASS the schedule and A/B legs take a census of:
+# the main variant and NEE (K2), pt_megakernel<NEE, REFR, DOF, LEGACY, TILES,
+# ENV, SAMPLES> (a checkout from before SAMPLES has six arguments)
+SASS_VARIANTS = {"main": r"pt_megakernelILb0ELb0ELb0ELb0ELb0ELi0E(?:Lb0E)?E",
+                 "nee": r"pt_megakernelILb1ELb0ELb0ELb0ELb0ELi0E(?:Lb0E)?E"}
 
 
 def smi(query):
@@ -588,14 +621,47 @@ ENV_LIGHT = ("MATERIAL 4\nRGB 1 .9 .8\nSPECEX 0\nSPECRGB 0 0 0\nREFL 0\nREFR 0\n
              "SCALE .6 .6 .6\n")
 
 
+# the adaptive legs' dispatches at 800x800 (AdaptiveRenderer.render(256):
+# 325 tiles of 32x64, a 64-spp warm-up, then rounds of 32 spp on a quarter of
+# the tiles), each launch rendering buffers A and B of its tiles: (tiles,
+# samples a launch, iteration bases of buffer A and B). The round is the
+# first after the warm-up (every tile at 32 samples a buffer), on the 81
+# tiles a round takes (a quarter of 325), here every fourth: the tiles a
+# round picks by their noise vary by render.
+ADAPTIVE_TILES = 325
+ADAPTIVE_DISPATCH = {
+    "warmup": (tuple(range(ADAPTIVE_TILES)), 32, 1, 33),
+    "round": (tuple(range(0, 4 * 81, 4)), 16, 65, 81),
+}
+
+
+def adaptive_tiles(layout, device, which):
+    """((table, px, py), samples) of one of the adaptive legs' dispatches
+    (ADAPTIVE_DISPATCH) on the 800x800 layout, as AdaptiveRenderer builds it."""
+    ids, samples, base_a, base_b = ADAPTIVE_DISPATCH[which]
+    gpx, gpy, _, _ = layout(800, 800)
+    if gpx.shape[0] != ADAPTIVE_TILES:
+        raise AssertionError(f"the 800x800 layout has {gpx.shape[0]} tiles, not {ADAPTIVE_TILES}")
+    ids2 = torch.tensor(ids + ids, dtype=torch.int32, device=device)
+    bases = torch.tensor([base_a] * len(ids) + [base_b] * len(ids), dtype=torch.int32,
+                         device=device)
+    rows = ids2.long()
+    return (torch.cat([ids2, bases]),
+            torch.as_tensor(gpx, device=device)[rows].reshape(-1).contiguous(),
+            torch.as_tensor(gpy, device=device)[rows].reshape(-1).contiguous()), samples
+
+
 def variant_launchers(pkg, device, kernel=None):
-    """One 50-sample launch of each timed kernel variant, built with the
-    package ``pkg`` (this checkout's or a parent's) or with its ``kernel``
-    binding, keyed by name: the named cases of the K1-K6 rows, then each
-    other compile-time variant once ('v <variant>': sobol, no
-    antialiasing; cornell_golden.txt without an environment,
-    env_spheres.txt with one and, for split + NEE, an emissive sphere in it;
-    a 0.3 lens for dof; 16 tiles)."""
+    """One launch of each timed kernel variant, built with the package
+    ``pkg`` (this checkout's or a parent's) or with its ``kernel`` binding,
+    keyed by name: the named cases of the K1-K6 rows, then each other
+    compile-time variant once ('v <variant>': sobol, no antialiasing;
+    cornell_golden.txt without an environment, env_spheres.txt with one and,
+    for split + NEE, an emissive sphere in it; a 0.3 lens for dof; 16
+    tiles). A launch renders 50 samples of the frame or of 16 tiles, except
+    the adaptive legs' dispatches (ADAPTIVE_DISPATCH: 'K6 round', 'K6
+    warmup' on golden with NEE, 'K6 env_round', 'K6 env_warmup' on
+    env_spheres with the exact environment)."""
     kmod = importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel")
     kernel = kernel or kmod.KERNEL
     layout = importlib.import_module(pkg.__name__ + ".render.adaptive").make_tile_layout
@@ -613,9 +679,10 @@ def variant_launchers(pkg, device, kernel=None):
     gpx, gpy, _, _ = layout(800, 800)
     ids = torch.arange(0, 16 * 20, 20, dtype=torch.int32, device=device)
     bases = 1 + 7 * torch.arange(16, dtype=torch.int32, device=device)
-    tiles = (torch.cat([ids, bases]),
-             torch.as_tensor(gpx, device=device)[ids.long()].reshape(-1).contiguous(),
-             torch.as_tensor(gpy, device=device)[ids.long()].reshape(-1).contiguous())
+    # (tile tables, samples) of a launch over 16 tiles
+    tiles16 = ((torch.cat([ids, bases]),
+                torch.as_tensor(gpx, device=device)[ids.long()].reshape(-1).contiguous(),
+                torch.as_tensor(gpy, device=device)[ids.long()].reshape(-1).contiguous()), CHUNK)
     cases = {
         "K1 main": (cornell, cfg(sampler="sobol"), None),
         "K1 aa": (cornell, cfg(sampler="sobol", antialias=True), None),
@@ -624,15 +691,22 @@ def variant_launchers(pkg, device, kernel=None):
             enable_refraction=True, dof=True, nee=True, sampler="sobol"), None),
         "K1b throughput": (cornell, cfg(gather_mode="throughput"), None),
         "K2 nee_aa": (golden, cfg(nee=True, antialias=True, sampler="sobol"), None),
+        # the adaptive leg's options over the full frame
+        "K2 nee_sobol": (golden, cfg(nee=True, sampler="sobol"), None),
         "K3 exact": (env, cfg(), None),
         "K3 exact_sobol": (env, cfg(sampler="sobol"), None),
         "K3 exact_refraction": (env, cfg(enable_refraction=True), None),
         "K4 env_nee": (env, cfg(nee=True), None),
         "K5 split": (env, cfg(env_mode="split"), None),
         "K5 split_aa": (env, cfg(env_mode="split", antialias=True), None),
-        "K6 tiles16": (golden, cfg(nee=True, sampler="sobol"), tiles),
-        "K6 env_tiles16": (env, cfg(sampler="sobol"), tiles),
+        "K6 tiles16": (golden, cfg(nee=True, sampler="sobol"), tiles16),
+        "K6 env_tiles16": (env, cfg(sampler="sobol"), tiles16),
     }
+    for which in ADAPTIVE_DISPATCH:
+        cases[f"K6 {which}"] = (golden, cfg(nee=True, sampler="sobol"),
+                                adaptive_tiles(layout, device, which))
+        cases[f"K6 env_{which}"] = (env, cfg(sampler="sobol"),
+                                    adaptive_tiles(layout, device, which))
     env_text = open(os.path.join(REPO, "scenes", "env_spheres.txt")).read()
     n_env = env_text.count("\nOBJECT ")
     env_light = (env_text.replace("\nENVIRONMENT\n", "\n" + ENV_LIGHT[0] + "ENVIRONMENT\n", 1)
@@ -666,7 +740,7 @@ def variant_launchers(pkg, device, kernel=None):
         sc = variant_scene(env_mode, nee, dof)
         name = kmod.variant_name(kmod.kernel_options(config, sc), tl)
         if name not in named:
-            cases[f"v {name}"] = (sc, config, tiles if tl else None)
+            cases[f"v {name}"] = (sc, config, tiles16 if tl else None)
             named.add(name)
     launchers = {}
     for name, (sc, config, tl) in cases.items():
@@ -680,7 +754,7 @@ def variant_launchers(pkg, device, kernel=None):
                 pk, opts, SEED, 1, CHUNK, device, env_rows=rows))
         else:
             launchers[name] = (lambda pk=pk, opts=opts, tl=tl: kernel(
-                pk, opts, SEED, 0, CHUNK, device, tiles=tl))
+                pk, opts, SEED, 0, tl[1], device, tiles=tl[0]))
     return launchers
 
 
@@ -716,17 +790,54 @@ def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=()):
                  for side, k in kernels.items()}
     sides = list(kernels)
     turns = sides + sides[::-1]
+    out["ab_sass_nee"] = {
+        side: sass_census(build_modules.get(side, build).library_path(k.name, k.flags),
+                          SASS_VARIANTS["nee"])
+        for side, k in kernels.items()}
+    print("ab sass nee", json.dumps(out["ab_sass_nee"]), flush=True)
     rows = {}
     for name in launchers["change"]:
         want = launchers["parent"][name]()
-        same = {side: torch.equal(want, launchers[side][name]()) for side in sides[1:]}
+        got = {side: launchers[side][name]() for side in sides[1:]}
+        same = {side: torch.equal(want, g) for side, g in got.items()}
+        # against the parent's output (bit for bit its plain version's): the
+        # kernel-vs-plain readings of a variant that adds in another order
+        gate = {side: agreement(g, want) for side, g in got.items()}
+        del got
         times = {side: [] for side in sides}
         for side in turns:
             times[side].append(time_launches(launchers[side][name], REPS)["median"])
-        rows[name] = dict(ms=times, bit_identical=same)
+        rows[name] = dict(ms=times, bit_identical=same, vs_parent=gate)
         print(f"ab {name}: " + "; ".join(f"{side} {times[side]}" for side in sides)
-              + f" ms; bit-identical {same}", flush=True)
+              + f" ms; bit-identical {same}; vs parent "
+              + "; ".join(f"{side} share {g['share_gt_1e3']:.3e} max {g['max_abs']:.3e}"
+                          for side, g in gate.items()), flush=True)
     out["ab_variants"] = rows
+    # this checkout's tile dispatch at the adaptive dispatches with a
+    # pixel's samples in one item (as before the split) against its own
+    # choice, in turns
+    layout = importlib.import_module(PACKAGE + ".render.adaptive").make_tile_layout
+    golden = Scene.from_desc(load_scene_desc(os.path.join(REPO, "scenes", "cornell_golden.txt")),
+                             device)
+    env = Scene.from_desc(load_scene_desc(os.path.join(REPO, "scenes", "env_spheres.txt")),
+                          device)
+    split_rows = {}
+    for sc, cfg, tag in ((golden, RenderConfig(nee=True, sampler="sobol"), ""),
+                         (env, RenderConfig(sampler="sobol"), "env_")):
+        opts = mk.kernel_options(cfg, sc)
+        pk = mk.pack_scene(sc, nee=opts.nee, config=cfg)
+        for which in ADAPTIVE_DISPATCH:
+            tl, samples = adaptive_tiles(layout, device, which)
+            chosen = mk.tile_group(tl[1].numel(), samples, device)
+            runs = {g: (lambda g=g: mk.KERNEL(pk, opts, SEED, 0, samples, device, tiles=tl,
+                                              group=g)) for g in sorted({samples, chosen})}
+            times = {g: [] for g in runs}
+            for g in list(runs) + list(runs)[::-1]:
+                times[g].append(time_launches(runs[g], REPS)["median"])
+            split_rows[f"K6 {tag}{which}"] = dict(chosen=chosen, ms=times)
+            print(f"ab split K6 {tag}{which}: samples an item {chosen} (of {samples}); ms "
+                  f"{times}", flush=True)
+    out["ab_tile_items"] = split_rows
     renderers = {
         side: pkgs[side].Renderer(os.path.join(REPO, "scenes", "cornell.txt"),
                                   pkgs[side].RenderConfig(samples_per_launch=200,
@@ -840,6 +951,10 @@ def measure_megakernel(device, out):
     pk = mk.pack_scene(golden, nee=True)
     out["kernel_tiles16_ms"] = time_launches(
         lambda: exact(pk, opts, SEED, 0, CHUNK, device, tiles=tiles), REPS
+    )
+    round_tiles, round_samples = adaptive_tiles(make_tile_layout, device, "round")
+    out["kernel_k6_round_ms"] = time_launches(
+        lambda: exact(pk, opts, SEED, 0, round_samples, device, tiles=round_tiles), REPS
     )
 
     golden_path = os.path.join(REPO, "scenes", "cornell_golden.txt")

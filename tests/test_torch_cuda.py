@@ -20,10 +20,14 @@ both run the same IEEE operations in the same order (the kernel is built
 without multiply-add contraction) and the same CUDA sinf/cosf: at most 1e-4
 of pixels with a max-channel |Δ| above 1e-3, and per-channel image means
 within 1e-4. Measured on an H100 at 800×800, depth 8: the kernel is
-bit-identical to the plain version (max |Δ| 0), while a build with
-contraction on (-fmad=true) differs in 1.25e-5 of pixels by more than 1e-3
-with a mean gap of 2.5e-5 (scripts/torch_measure.py). The bound leaves room
-for last-ulp noise of that size, while a fault on more than 64 of 640,000
+bit-identical to the plain version (max |Δ| 0) in every variant without
+NEE, and within 1e-6 at 2 spp in the NEE variants, which add each light
+ray's term to the pixel's sum from the warp's queue of light rays, after
+the path's later terms (another float grouping of the same terms:
+``assert_kernel_output``), while a build with contraction on (-fmad=true)
+differs in 1.25e-5 of pixels by more than 1e-3 with a mean gap of 2.5e-5
+(scripts/torch_measure.py, chip_smoke.py). The bound leaves room for
+last-ulp noise of that size, while a fault on more than 64 of 640,000
 pixels fails it.
 """
 
@@ -44,6 +48,7 @@ from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import write_hdr
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import fast
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as tmk
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as tmesh
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.adaptive import make_tile_layout
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import (
     make_mesh_intersector,
 )
@@ -78,6 +83,18 @@ def assert_matches_plain_version(got, want):
     frac = float((diff > 1e-3).mean())
     assert frac <= 1e-4, f"{frac:.4%} of pixels differ by more than 1e-3"
     np.testing.assert_allclose(got.mean(axis=0), want.mean(axis=0), rtol=1e-4)
+
+
+def assert_kernel_output(got, want, nee):
+    """The kernel's output against its plain version's on the same card: an
+    NEE variant adds each light ray's term to the pixel's sum after the
+    path's later terms (the light rays' queue: the same terms in another
+    float grouping), so it is held to ``assert_matches_plain_version``;
+    every other variant is bit for bit the plain version."""
+    if nee:
+        assert_matches_plain_version(got.cpu().numpy(), want.cpu().numpy())
+    else:
+        assert torch.equal(got, want)
 
 
 def _scene_text(name, res=64):
@@ -652,17 +669,20 @@ def _queue_scene(res, config, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(QUEUE_CASES))
 def test_cuda_queue_matches_plain_version_bit_for_bit(case, cuda):
+    """Bit for bit without NEE; with it, within the kernel-vs-plain bound
+    (assert_kernel_output)."""
     res, config, samples = QUEUE_CASES[case]
     scene, opts, packed = _queue_scene(res, config, cuda)
     got = tmk.KERNEL(packed, opts, 7, 3, samples, cuda)
     pix = torch.arange(scene.camera.pixel_count, device=cuda)
     want = tmk.render_samples_reference(pix, packed, opts, 7, 3, samples)
-    assert torch.equal(got, want)
+    assert_kernel_output(got, want, opts.nee)
 
 
 @pytest.mark.cuda
 def test_cuda_tile_queue_matches_plain_version_bit_for_bit(cuda):
-    """K6 through the queue: 4 tiles (one repeated) with distinct bases."""
+    """K6 through the queue: 4 tiles (one repeated) with distinct bases;
+    with NEE, within the kernel-vs-plain bound (assert_kernel_output)."""
     scene, _ = _option_scene("nee-aa-sobol", cuda)
     config = RenderConfig(nee=True, sampler="sobol")
     packed = tmk.pack_scene(scene, nee=True)
@@ -674,7 +694,7 @@ def test_cuda_tile_queue_matches_plain_version_bit_for_bit(cuda):
     py = (flat // 64).to(torch.float32)
     got = tmk.render_tiles(scene, config, 7, ids, bases, px, py, 3, packed=packed)
     want = tmk.render_tiles_reference(px, py, ids, bases, packed, tmk.kernel_options(config), 7, 3)
-    assert torch.equal(got, want)
+    assert_kernel_output(got, want, nee=True)
 
 
 @pytest.mark.cuda
@@ -708,8 +728,11 @@ def test_cuda_queue_resets_between_launches_and_streams(cuda):
 @pytest.mark.parametrize("case", ["1850-px-sobol", "50-samples-glass-dof-nee"])
 def test_cuda_counting_build_equals_the_warp_schedule(case, cuda):
     """The counting build's warp iterations, lane-iterations and both-branch
-    iterations equal warp_schedule's replay of the warps it recorded, on the
-    plain version's path lengths; its output is the production build's."""
+    iterations (and with NEE its light rays' queue) equal warp_schedule's
+    replay of the warps it recorded, on the plain version's path lengths;
+    its output is the production build's (with NEE within the
+    kernel-vs-plain bound: which pass tests a light ray depends on the
+    pixels each warp took)."""
     res, config, samples = QUEUE_CASES[case]
     scene, opts, packed = _queue_scene(res, config, cuda)
     counted, owners = tmk.kernel_warp_work(packed, opts, 7, 3, samples, cuda)
@@ -724,7 +747,7 @@ def test_cuda_counting_build_equals_the_warp_schedule(case, cuda):
     work = torch.zeros(len(tmk.WORK), dtype=torch.int64, device=cuda)
     own = torch.full_like(torch.as_tensor(owners, device=cuda), -1)
     got = tmk.COUNTING(packed, opts, 7, 3, samples, cuda, work=work, owners=own)
-    assert torch.equal(got, tmk.KERNEL(packed, opts, 7, 3, samples, cuda))
+    assert_kernel_output(got, tmk.KERNEL(packed, opts, 7, 3, samples, cuda), opts.nee)
 
 
 # ── the visibility rays (K2's light ray, K4's env ray, K5's sun rays, the
@@ -751,6 +774,8 @@ def _vis_case(case, device, tmp_path):
         "CAMERA", "ENVIRONMENT\nFILE meadow.hdr\nSTRENGTH 1\n\nCAMERA", 1)
     cases = {
         "nee-depth1": (golden, _SCENES, dict(nee=True, trace_depth=1, sampler="sobol"), 3),
+        "nee-aa-sobol-depth8": (golden, _SCENES, dict(nee=True, antialias=True, sampler="sobol"),
+                                4),
         "nee-depth2-aa": (golden, _SCENES, dict(nee=True, trace_depth=2, antialias=True), 3),
         "nee-two-lights": (two_light_golden(golden), _SCENES, dict(nee=True), 2),
         "nee-glass-refraction": (_scene_text("cornell_glass.txt"), _SCENES,
@@ -775,9 +800,10 @@ def _vis_case(case, device, tmp_path):
     return parse(text, base), RenderConfig(**cfg), samples
 
 
-VIS_CASES = ["nee-depth1", "nee-depth2-aa", "nee-two-lights", "nee-glass-refraction",
-             "nee-50x37-px", "nee-env-split", "split-0-suns", "split-1-sun", "split-32-suns",
-             "split-suns-below", "split-64-geoms-32-suns", "env-nee-depth2"]
+VIS_CASES = ["nee-depth1", "nee-aa-sobol-depth8", "nee-depth2-aa", "nee-two-lights",
+             "nee-glass-refraction", "nee-50x37-px", "nee-env-split", "split-0-suns",
+             "split-1-sun", "split-32-suns", "split-suns-below", "split-64-geoms-32-suns",
+             "env-nee-depth2"]
 
 
 def test_visibility_cases_carry_what_they_name(tmp_path):
@@ -807,19 +833,22 @@ def test_visibility_cases_carry_what_they_name(tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", VIS_CASES)
 def test_cuda_visibility_rays_match_plain_version_bit_for_bit(case, cuda, tmp_path):
+    """Bit for bit without NEE; the NEE cases, whose light rays' terms join
+    the sum from the warp's queue, within the kernel-vs-plain bound."""
     scene, config, samples = _vis_case(case, cuda, tmp_path)
     opts = tmk.kernel_options(config, scene)
     packed = tmk.pack_scene(scene, nee=opts.nee, config=config)
     got = tmk.KERNEL(packed, opts, 7, 3, samples, cuda)
     pix = torch.arange(scene.camera.pixel_count, device=cuda)
     want = tmk.render_samples_reference(pix, packed, opts, 7, 3, samples)
-    assert torch.equal(got, want)
+    assert_kernel_output(got, want, opts.nee)
 
 
 @pytest.mark.cuda
 def test_cuda_tile_dispatch_with_nee_depth1_is_bit_for_bit(cuda):
     """K6 with NEE at depth 1, where every light ray is cast at a path's
-    last vertex: 4 tiles (one repeated) with distinct bases."""
+    last vertex: 4 tiles (one repeated) with distinct bases, within the
+    kernel-vs-plain bound (assert_kernel_output)."""
     scene, _ = _option_scene("nee-aa-sobol", cuda)
     config = RenderConfig(nee=True, sampler="sobol", trace_depth=1)
     packed = tmk.pack_scene(scene, nee=True)
@@ -831,12 +860,12 @@ def test_cuda_tile_dispatch_with_nee_depth1_is_bit_for_bit(cuda):
     py = (flat // 64).to(torch.float32)
     got = tmk.render_tiles(scene, config, 7, ids, bases, px, py, 3, packed=packed)
     want = tmk.render_tiles_reference(px, py, ids, bases, packed, tmk.kernel_options(config), 7, 3)
-    assert torch.equal(got, want)
+    assert_kernel_output(got, want, nee=True)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["nee-depth2-aa", "nee-env-split", "split-32-suns",
-                                  "env-nee-depth2"])
+@pytest.mark.parametrize("case", ["nee-aa-sobol-depth8", "nee-depth2-aa", "nee-env-split",
+                                  "split-32-suns", "env-nee-depth2"])
 def test_cuda_counting_build_counts_the_visibility_rays(case, cuda, tmp_path):
     """The counting build's rays of each kind are the plain version's
     counts, and all its counters equal warp_schedule's emulation on the
@@ -855,6 +884,151 @@ def test_cuda_counting_build_counts_the_visibility_rays(case, cuda, tmp_path):
                              owners=owners, vis=tmk.path_visibility(stats))
     assert counted == {k: want[k] for k in tmk.WORK}
     assert (want["added"] > 0) == (opts.env == "split")
+    assert counted["light_pass_lanes"] == counted["light_rays"]
+    assert (counted["light_passes"] > 0) == opts.nee
+
+
+def _adaptive_round(device, n_tiles=81):
+    """The adaptive leg's refine round at 800x800 (AdaptiveRenderer.render
+    (256)): both buffers of ``n_tiles`` of the 325 tiles, every fourth, at
+    the bases of the first round after the 64-spp warm-up."""
+    gpx, gpy, _, _ = make_tile_layout(800, 800)
+    ids = torch.arange(0, 4 * n_tiles, 4, dtype=torch.int32, device=device).repeat(2)
+    bases = torch.cat([torch.full((n_tiles,), 65, dtype=torch.int32, device=device),
+                       torch.full((n_tiles,), 81, dtype=torch.int32, device=device)])
+    px = torch.as_tensor(gpx, device=device)[ids.long()].reshape(-1).contiguous()
+    py = torch.as_tensor(gpy, device=device)[ids.long()].reshape(-1).contiguous()
+    return ids, bases, px, py
+
+
+@pytest.mark.cuda
+def test_cuda_tile_dispatch_at_the_adaptive_round_size(cuda):
+    """K6 at the size of the adaptive leg's rounds: 162 tile slots of
+    cornell_golden at 800x800 with NEE and sobol, 2 samples (a queue item a
+    sample, tile_group's choice there, and both in one item), against the
+    plain version within the kernel-vs-plain bound."""
+    desc = parse_scene(open(os.path.join(_SCENES, "cornell_golden.txt")).read())
+    scene = Scene.from_desc(desc, cuda)
+    config = RenderConfig(nee=True, sampler="sobol")
+    packed = tmk.pack_scene(scene, nee=True)
+    ids, bases, px, py = _adaptive_round(cuda)
+    assert ids.numel() == 162 and px.numel() == 162 * tmk.TILE
+    assert tmk.tile_group(px.numel(), 2, cuda) == 1
+    launches = tmk.KERNEL.launches_by_variant.get("nee+tiles", 0)
+    got = tmk.render_tiles(scene, config, 7, ids, bases, px, py, 2, packed=packed)
+    assert tmk.KERNEL.launches_by_variant["nee+tiles"] == launches + 1
+    want = tmk.render_tiles_reference(px, py, ids, bases, packed, tmk.kernel_options(config), 7, 2)
+    assert_kernel_output(got, want, nee=True)
+    opts = tmk.kernel_options(config)
+    whole = tmk.KERNEL(packed, opts, 7, 0, 2, cuda, tiles=(torch.cat([ids, bases]), px, py),
+                       group=2)
+    assert_kernel_output(whole, want, nee=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 3])
+def test_cuda_counting_build_counts_the_tile_dispatch_light_rays(group, cuda):
+    """nee+tiles (K6 with NEE): the counting build's counters, its light
+    rays' queue included, equal the emulation on the plain version's paths,
+    over 8 of golden's tiles (64x64 frame coordinates), 3 samples, with a
+    queue item a sample and a pixel's three samples in one item."""
+    scene, _ = _option_scene("nee-aa-sobol", cuda)
+    config = RenderConfig(nee=True, sampler="sobol")
+    opts = tmk.kernel_options(config)
+    packed = tmk.pack_scene(scene, nee=True)
+    ids = torch.tensor([1, 0, 1, 3, 2, 5, 4, 6], dtype=torch.int32, device=cuda)
+    bases = torch.tensor([1, 5, 9, 3, 7, 2, 4, 8], dtype=torch.int32, device=cuda)
+    flat = torch.as_tensor(np.random.default_rng(11).integers(0, 64 * 64, 8 * tmk.TILE),
+                           device=cuda)
+    px = (flat % 64).to(torch.float32)
+    py = (flat // 64).to(torch.float32)
+    counted, owners = tmk.kernel_warp_work(packed, opts, 7, 0, 3, cuda,
+                                           tiles=(torch.cat([ids, bases]), px, py), group=group)
+    stats = {}
+    tmk.render_tiles_reference(px, py, ids, bases, packed, opts, 7, 3, stats=stats)
+    steps, draws = tmk.path_lengths(stats)
+    want = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, **tmk.schedule_args(opts, tiles=True),
+                             owners=owners, vis=tmk.path_visibility(stats), group=group)
+    assert (want["visits"] == 1).all() and len(want["visits"]) == 8 * tmk.TILE * (3 // group)
+    assert counted == {k: want[k] for k in tmk.WORK}
+    assert counted["light_rays"] == int(stats["shadow"]) == counted["light_pass_lanes"]
+
+
+def _all_variants():
+    """Every compile-time variant of the megakernel as (nee, refraction,
+    dof, throughput, tiles, env 0-3), the set csrc/megakernel.cu's
+    valid_variant admits, and its name (megakernel.variant_name)."""
+    out = {}
+    for f in range(128):
+        nee, refr, dof, legacy, tiles = (bool(f >> b & 1) for b in range(5))
+        env = f >> 5
+        if (nee and legacy) or (env and legacy) or (nee and env in (1, 2)) or (tiles and env >= 2):
+            continue
+        parts = [n for n, on in (("nee", nee), ("refraction", refr), ("dof", dof),
+                                 ("throughput", legacy), ("tiles", tiles)) if on]
+        env_name = ("", "env_exact", "env_nee", "env_split")[env]
+        out["+".join(parts + ([env_name] if env_name else [])) or "main"] = (
+            nee, refr, dof, legacy, tiles, env)
+    return out
+
+
+VARIANTS = _all_variants()
+
+
+def test_every_variant_is_named_once():
+    """The 44 compile-time variants, each named as the kernel's ptxas
+    report and launch counts name it."""
+    assert len(VARIANTS) == 44
+    scene = Scene.from_desc(_small(), "cpu")
+    for name, (nee, refr, dof, legacy, tiles, env) in VARIANTS.items():
+        if env == 0:
+            opts = tmk.kernel_options(RenderConfig(
+                nee=nee, enable_refraction=refr, dof=dof,
+                gather_mode="throughput" if legacy else "light_only"), scene)
+            assert tmk.variant_name(opts, tiles) == name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_cuda_every_variant_against_plain_version(name, cuda, tmp_path):
+    """Every compile-time variant at 32x32, depth 8, sobol, 3 samples (4
+    tiles of random frame coordinates for a tile variant, its queue items
+    one sample and three): an NEE variant within the kernel-vs-plain bound,
+    every other bit for bit (assert_kernel_output)."""
+    nee, refr, dof, legacy, tiles, env = VARIANTS[name]
+    base = _SCENES
+    if env == 0:
+        text = _scene_text("cornell_golden.txt", res=32)
+    elif env == 3 and nee:  # split + NEE needs an analytic light
+        text, base = env_scene_text(write_env_map(tmp_path, "sun"), 32, light=True), str(tmp_path)
+    else:
+        text = env_spheres_text(32)
+    if dof:
+        text = with_aperture(text)
+    config = RenderConfig(nee=nee or env == 2, enable_refraction=refr, dof=dof, sampler="sobol",
+                          gather_mode="throughput" if legacy else "light_only",
+                          env_mode="split" if env == 3 else "exact")
+    scene = Scene.from_desc(parse_scene(text, base_dir=base), cuda)
+    opts = tmk.kernel_options(config, scene)
+    assert tmk.variant_name(opts, tiles) == name
+    packed = tmk.pack_scene(scene, nee=opts.nee, config=config)
+    if tiles:
+        ids = torch.tensor([1, 0, 1, 3], dtype=torch.int32, device=cuda)
+        bases = torch.tensor([1, 5, 9, 3], dtype=torch.int32, device=cuda)
+        flat = torch.as_tensor(np.random.default_rng(13).integers(0, 32 * 32, 4 * tmk.TILE),
+                               device=cuda)
+        px = (flat % 32).to(torch.float32)
+        py = (flat // 32).to(torch.float32)
+        want = tmk.render_tiles_reference(px, py, ids, bases, packed, opts, 7, 3)
+        for group in (1, 3):
+            got = tmk.KERNEL(packed, opts, 7, 0, 3, cuda, tiles=(torch.cat([ids, bases]), px, py),
+                             group=group)
+            assert_kernel_output(got, want, opts.nee)
+    else:
+        got = tmk.KERNEL(packed, opts, 7, 1, 3, cuda)
+        want = tmk.render_samples_reference(torch.arange(32 * 32, device=cuda), packed, opts,
+                                            7, 1, 3)
+        assert_kernel_output(got, want, opts.nee)
 
 
 # ── the mesh kernels K7/K8 and the mesh pipeline ──

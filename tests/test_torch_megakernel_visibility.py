@@ -3,20 +3,22 @@ per-path record of them and the warp schedule that emulates where the CUDA
 kernel traces them.
 
 At a diffuse vertex the kernel casts visibility rays: toward a point on an
-area light under NEE and along the (sample, depth) row's direction under
-env NEE, both traced there, and toward each sun above the normal in the
-sun/sky split, traced in the same loop over the primitives as the ray that
-next leaves that vertex, one loop iteration later; sun rays cast at a
-path's last vertex (trace depth reached) take one more iteration of their
-own. ``megakernel.path_visibility`` records, per path, the depths at which
-it casts each kind (bit d) and its sun rays; ``warp_schedule(..., vis=)``
-counts what the kernel's counting build counts (tests/test_torch_cuda.py
-holds the two equal on the card). Here, on the small Cornell box with NEE
-and a small env_spheres with env NEE and in split mode, at depth 3 (and 1)
-and 2 spp, the per-path records must add up to the plain version's ray
-counts, and the schedule must serve every pixel once, its samples in
-order, in the path steps plus one step for each path whose last vertex
-cast sun rays.
+area light under NEE, queued in the warp and tested 32 at a time, a ray a
+lane, once 32 are pending (the rest in a last pass before the warp exits);
+along the (sample, depth) row's direction under env NEE, traced there; and
+toward each sun above the normal in the sun/sky split, traced in the same
+loop over the primitives as the ray that next leaves that vertex, one loop
+iteration later; sun rays cast at a path's last vertex (trace depth
+reached) take one more iteration of their own. ``megakernel.path_visibility``
+records, per path, the depths at which it casts each kind (bit d) and its
+sun rays; ``warp_schedule(..., vis=)`` counts what the kernel's counting
+build counts (tests/test_torch_cuda.py holds the two equal on the card).
+Here, on the small Cornell box with NEE and a small env_spheres with env
+NEE and in split mode, at depth 3 (and 1) and 2 spp, the per-path records
+must add up to the plain version's ray counts, the schedule must serve
+every pixel once, its samples in order, in the path steps plus one step for
+each path whose last vertex cast sun rays, and the light queue must test
+every light ray once, in full passes but for one last pass a warp.
 """
 
 import os
@@ -134,6 +136,66 @@ def test_visibility_counters_follow_the_rays(paths, name):
     plain = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, **tmk.schedule_args(opts), warps=8)
     assert all(plain[k] == 0 for k in tmk.WORK[3:]) and plain["added"] == 0
     assert plain["lane_iters"] + plain["repeated"] == int(steps.sum())
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_light_queue_tests_every_ray_once_in_full_passes(paths, name):
+    """The NEE variants' light rays go through each warp's queue: every ray
+    the plain version records is tested exactly once, no pass tests more
+    than 32, every pass but a warp's last one (at most one a warp) tests
+    32, and the rays tested after their lane wrote out the pixel, whose
+    terms land in the output, are counted: every ray of a last pass among
+    them. Without light rays the queue stays empty."""
+    opts, _suns, stats, steps, draws, vis = paths[name]
+    warps = 8
+    got = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, **tmk.schedule_args(opts), warps=warps,
+                            vis=vis)
+    sizes = got["light_pass_sizes"]
+    rays = int(stats.get("shadow", 0))
+    assert sizes.shape == (33,) and sizes[0] == 0
+    assert int((np.arange(33) * sizes).sum()) == got["light_pass_lanes"] == rays
+    assert int(sizes.sum()) == got["light_passes"]
+    assert int(sizes[:32].sum()) == got["light_exit_passes"] <= warps
+    exit_rays = got["light_pass_lanes"] - 32 * int(sizes[32])
+    assert exit_rays <= got["light_late"] <= rays
+    assert (rays > 0) == opts.nee == (got["light_late"] > 0)
+
+
+def test_item_paths_keep_each_sample_of_each_pixel():
+    """A tile dispatch whose queue items are (pixel, group samples) pairs:
+    item g·N + p, sample j is pixel p's sample g·group + j."""
+    steps = np.arange(6 * 5).reshape(6, 5)
+    (items,) = tmk.item_paths(2, steps)
+    assert items.shape == (2, 15)
+    for g in range(3):
+        for p in range(5):
+            for j in range(2):
+                assert items[j, g * 5 + p] == steps[g * 2 + j, p]
+    assert (tmk.item_paths(6, steps)[0] == steps).all()
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("name", ["nee-depth3", "nee-depth1-sobol"])
+def test_light_queue_of_split_items(paths, name, group):
+    """With a pixel's samples split over queue items, each of ``group``
+    samples and settling into a unit of its own, the schedule serves every
+    item once and the queue still tests every light ray once, in full
+    passes but for one last pass a warp, and every ray of a last pass is
+    late (its sample has settled)."""
+    opts, _suns, stats, steps, draws, vis = paths[name]
+    args = dict(**tmk.schedule_args(opts, tiles=True), warps=8, vis=vis)
+    got = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, group=group, **args)
+    items = steps.shape[1] * (steps.shape[0] // group)
+    assert got["visits"].shape == (items,) and (got["visits"] == 1).all()
+    assert (got["samples"] == group).all() and got["in_order"]
+    assert got["lane_iters"] + got["repeated"] == int(steps.sum())
+    rays = int(stats["shadow"])
+    sizes = got["light_pass_sizes"]
+    assert int((np.arange(33) * sizes).sum()) == got["light_pass_lanes"] == rays
+    assert got["light_rays"] == rays
+    assert int(sizes[:32].sum()) == got["light_exit_passes"] <= 8
+    exit_rays = got["light_pass_lanes"] - 32 * int(sizes[32])
+    assert exit_rays <= got["light_late"] <= rays
 
 
 def test_main_variant_records_no_visibility_rays():
