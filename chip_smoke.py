@@ -62,9 +62,16 @@ Phases, in order; any failure raises and exits non-zero:
    plain version, times and bounds at that size); then one 50-sample launch
    of kernel and plain version of each,
    and for env NEE (K4) and the split composite (K5) the visibility rays of
-   that launch as phase 6 reports K2's;
+   that launch as phase 6 reports K2's; then env NEE's row kernel (its rows
+   and their per-geom table, part of K4) against its plain version at the
+   env NEE leg's sizes (a 200-sample step's 1,600 rows and a launch's 400):
+   the drawn texels equal, the largest |Δ| of each column (within 1e-6
+   relative), the table bit for bit the plain table of its directions, and
+   its time beside the torch row build's;
 11. environment legs: Renderer(env_spheres) render(1000) in exact, exact +
-   nee (env NEE) and split mode, rays/s and launches each;
+   nee (env NEE) and split mode, rays/s and launches each (the env NEE
+   leg's row kernel launched once a step), then each leg once more under
+   torch.profiler: its device idle share;
 12. furnace on the card: a constant map c over a diffuse sphere of albedo
    0.6, exact and env NEE, 1000 spp: background equal to c within 1e-5,
    the body's centre within 2% of 0.6·c;
@@ -100,7 +107,8 @@ Phases, in order; any failure raises and exits non-zero:
    against plain pipeline), and its channel means between the non-NEE
    depth-8 and depth-9 means, 1% slack each side;
 19. K6's loss over the adaptive legs' launches (launches x (time - bound),
-   the warm-up and the rounds each at its own size), then one JSON line
+   the warm-up and the rounds each at its own size), the row kernel's line
+   (part of K4's row), then one JSON line
    describing each ported kernel (K6's times and bound are the round's;
    K7's and K8's are the sums over one sample's launches, whose count
    'launches_per_sample' gives), the card, the result line.
@@ -170,9 +178,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # transform, slab offsets and c (and takes them alone where its vertex was
 # the path's last), and its direction and reciprocals (a sphere's |q_d|^2
 # and its reciprocal) come from a table computed once per launch: its own
-# work per geom is the rest of the test. A light or env ray is tested at its
-# vertex, on its own, each geom in full: its origin and direction transform
-# and the whole slab test or quadratic.
+# work per geom is the rest of the test. A light ray is tested at its vertex,
+# on its own, each geom in full: its origin and direction transform and the
+# whole slab test or quadratic. An env NEE ray is tested at its vertex too,
+# but its direction's object-space direction and reciprocals come from its
+# row's table (the row kernel's work, counted once a row): per geom it
+# transforms its origin and does the rest of the test.
 FLOPS_ORIGIN = {True: 6, False: 18}
 FLOPS_DIR = {True: 3, False: 15}
 FLOPS_RAY = {a: FLOPS_ORIGIN[a] + FLOPS_DIR[a] for a in (True, False)}
@@ -195,6 +206,14 @@ FLOPS_ENV_PDF = 61
 FLOPS_SH9 = 74
 FLOPS_ENV_NEE = 27
 FLOPS_SUN = 17
+# env NEE's row kernel, per row (csrc/megakernel.cu pt_env_rows): the alias
+# draw (scale, fraction, stay or alias and its offset, the azimuth, the two
+# band cosines and the cosine between them, acos, sin, the direction: 29),
+# the bilinear radiance (atan2, acos, u, v, the texel coordinates and
+# weights: 14, then 10 a channel); per geom the direction's object-space
+# direction and the table's reciprocals (FLOPS_DIR, FLOPS_SUN_TABLE). Its
+# threefry draws are integer work, not counted.
+FLOPS_ENV_ROW = 29 + 14 + 3 * 10
 
 # the mesh kernels (csrc/mesh_kernel.cu), per ray: the three reciprocals of
 # the direction, per cluster or supercluster box one slab test (6 sub, 6 mul,
@@ -337,14 +356,17 @@ def _golden_psnr(img, ref_img):
     return 10.0 * math.log10(1.0 / float(((mine - ref_img) ** 2).mean()))
 
 
-def _bound(packed, opts, work, out_bytes, in_bytes, shared=True):
+def _bound(packed, opts, work, out_bytes, in_bytes, shared=True, env_rows=0):
     """(bound_ms, bound_by): the larger of this launch's float operations
     over the card's float32 peak and its bytes (each input read once, each
     output written once) over its memory rate. ``work`` holds the plain
     version's counts for the same inputs (megakernel._trace_batch). With
     ``shared`` the sun rays count the work of the kernel's design (see
-    FLOPS_ORIGIN); without it, a full origin and direction transform and
-    test of their own at every geom (the rays traced alone)."""
+    FLOPS_ORIGIN), and so do the env NEE rays, whose direction terms come
+    from their row's table; without it, a full origin and direction
+    transform and test of their own at every geom (the rays traced alone).
+    ``env_rows`` adds the row kernel's work for that many env NEE rows (with
+    ``shared``, their per-geom table's too)."""
     import numpy as np
 
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
@@ -355,14 +377,19 @@ def _bound(packed, opts, work, out_bytes, in_bytes, shared=True):
         FLOPS_RAY[a] + (FLOPS_CUBE[a] if cube else FLOPS_SPHERE[a]) for a, cube in geoms)
     occlusion = sum(
         FLOPS_RAY[a] + (FLOPS_SHADOW_CUBE if cube else FLOPS_SHADOW_SPHERE) for a, cube in geoms)
-    sun_occlusion = occlusion
+    # one direction's table entries (a sun's, an env NEE row's), all geoms
+    entry = sum(FLOPS_DIR[a] + FLOPS_SUN_TABLE["cube" if cube else "sphere"] for a, cube in geoms)
+    sun_occlusion = env_occlusion = occlusion
+    row_table = 0
+    if shared and env_rows:
+        env_occlusion = sum(FLOPS_ORIGIN[a] + (FLOPS_SHADOW_CUBE - 3 if cube else
+                                               FLOPS_SHADOW_SPHERE - 6) for a, cube in geoms)
+        row_table = entry
     extra = 0
     if shared and opts.env == "split":
         sun_occlusion = sum(FLOPS_SHADOW_CUBE - FLOPS_SHARED_CUBE - 3 if cube else
                             FLOPS_SHADOW_SPHERE - FLOPS_SHARED_SPHERE - 6 for _a, cube in geoms)
-        extra = packed.env.num_suns * sum(FLOPS_DIR[a] + FLOPS_SUN_TABLE["cube" if cube else
-                                                                         "sphere"]
-                                          for a, cube in geoms)
+        extra = packed.env.num_suns * entry
         # the sun rays of a path's last vertex take an origin transform of
         # their own
         vis = mk.path_visibility(work)
@@ -374,12 +401,13 @@ def _bound(packed, opts, work, out_bytes, in_bytes, shared=True):
         int(work.get("isect", 0)) * isect
         + int(work.get("scatter", 0)) * FLOPS_SCATTER
         + int(work.get("shadow", 0)) * (FLOPS_NEE + occlusion)
-        + int(work.get("env_shadow", 0)) * (FLOPS_ENV_NEE + occlusion)
+        + int(work.get("env_shadow", 0)) * (FLOPS_ENV_NEE + env_occlusion)
         + int(work.get("sun_shadow", 0)) * (FLOPS_SUN + sun_occlusion)
         + int(work.get("env_lookup", 0)) * FLOPS_ENV_LOOKUP
         + int(work.get("env_pdf", 0)) * FLOPS_ENV_PDF
         + int(work.get("sh", 0)) * FLOPS_SH9
         + extra
+        + env_rows * (FLOPS_ENV_ROW + row_table)
     )
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = (out_bytes + in_bytes) / PEAK_BYTES_PER_S * 1e3
@@ -729,31 +757,33 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
         del w
     env_bytes = lambda pk: (pk.env.height * pk.env.width * 16  # noqa: E731
                             if pk.env.mode == "exact" else 0)
+    row_kernel = None
     for what, (pk, opts) in prepared.items():
-        # env NEE's rows are built once here and passed in, so the time is
-        # the kernel's own (the Renderer builds them once per step)
-        rows = (mk.build_env_nee_rows(pk.env.envmap, seed, 1, chunk, opts.trace_depth)
-                if opts.env_nee else None)
+        # env NEE's rows (with their per-geom table) are built once here by
+        # the row kernel and passed in, so the time is the megakernel's own
+        # (the Renderer builds them once per step); its bound adds the row
+        # kernel's work and the rows' bytes
+        n_rows = chunk * opts.trace_depth if opts.env_nee else 0
+        rows = mk.env_nee_rows(pk, seed, 1, chunk, opts.trace_depth) if opts.env_nee else None
         k_ms = _time_ms(
             lambda: mk.KERNEL(pk, opts, seed, 1, chunk, device, env_rows=rows), reps=3)
         p_ms = _time_ms(
             lambda: mk.render_samples_reference(pix, pk, opts, seed, 1, chunk), reps=1)
         w = {}
         mk.render_samples_reference(pix, pk, opts, seed, 1, chunk, stats=w)
-        rows = chunk * opts.trace_depth * 32 if opts.env_nee else 0
+        row_bytes = n_rows * (8 + 6 * pk.num_geoms) * 4
         times[what] = (k_ms, p_ms, _bound(pk, opts, w, pix.numel() * 12,
-                                          env_bytes(pk) + rows))
+                                          env_bytes(pk) + row_bytes, env_rows=n_rows))
         if what in ("env NEE", "split composite"):  # K4, K5
             _visibility(what, pk, opts, device, seed, chunk, w,
-                        _bound(pk, opts, w, pix.numel() * 12, env_bytes(pk) + rows, shared=False),
+                        _bound(pk, opts, w, pix.numel() * 12, env_bytes(pk) + n_rows * 32,
+                               shared=False, env_rows=n_rows),
                         times[what][2])
         del w
         print(f"  {what}: one {chunk}-sample launch: kernel {k_ms:.3f} ms, plain version "
               f"{p_ms:.1f} ms; bound {times[what][2][0]:.4f} ms ({times[what][2][1]})")
         if opts.env_nee:
-            r_ms = _time_ms(lambda: mk.build_env_nee_rows(
-                pk.env.envmap, seed, 1, chunk, opts.trace_depth), reps=3)
-            print(f"  {what}: building the {chunk * opts.trace_depth} shared rows: {r_ms:.3f} ms")
+            row_kernel = _row_kernel_check(pk, opts, seed, chunk)
 
     print("[11] environment legs: env_spheres.txt, samples_per_launch=200, 1000 spp")
     legs = {
@@ -761,7 +791,7 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
         "env NEE": (RenderConfig(samples_per_launch=200, nee=True), "env_nee"),
         "split": (RenderConfig(samples_per_launch=200, env_mode="split"), "env_split"),
     }
-    launches, images = {}, {}
+    launches, images, legs_out = {}, {}, {}
     for name, (cfg, variant) in legs.items():
         r = Renderer(env_path, cfg, device=device)
         r.step(200)  # warm-up: the split tables and composite are derived here
@@ -771,12 +801,21 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
         r.render(1000)
         wall = time.perf_counter() - t0
         by_variant = dict(mk.KERNEL.launches_by_variant)
+        row_launches = mk.KERNEL.row_launches
         launches[name] = sum(by_variant.values())
         images[name] = r.linear_image()
-        print(f"  {name}: {r.scene.camera.pixel_count * 1000 / wall:.6e} rays/s, "
-              f"{wall:.4f} s; mean {images[name].mean():.6f}; launches {by_variant}")
+        # the device's idle share of one more render(1000), under the profiler
+        r.reset()
+        idle = _idle_share(lambda: r.render(1000))
+        rays = r.scene.camera.pixel_count * 1000 / wall
+        legs_out[name] = (rays, idle)
+        print(f"  {name}: {rays:.6e} rays/s, {wall:.4f} s, device idle {idle:.4f} of a "
+              f"profiled render(1000); mean {images[name].mean():.6f}; launches {by_variant}, "
+              f"row kernel {row_launches}")
         if by_variant.get(variant, 0) <= 0:
             raise AssertionError(f"the {name} leg never launched {variant}")
+        if variant == "env_nee" and row_launches <= 0:
+            raise AssertionError("the env NEE leg never launched the row kernel")
         if not (np.isfinite(images[name]).all() and images[name].mean() > 0.0):
             raise AssertionError(f"the {name} leg's image is not finite or lit")
 
@@ -872,7 +911,64 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
     if not (np.isfinite(ada_img).all() and ada_img.mean() > 0.0) or spp_map.min() < 64:
         raise AssertionError("the environment adaptive image is malformed")
     return {"errs": errs, "times": times, "launches": launches,
-            "adaptive_launches": sum(ada_launches.values()), "k6": k6_env}
+            "adaptive_launches": sum(ada_launches.values()), "k6": k6_env,
+            "rows": row_kernel, "legs": legs_out}
+
+
+def _idle_share(fn):
+    """The device's idle share of the wall of one run of ``fn`` under
+    torch.profiler (1 - the device time of its kernels over the wall)."""
+    import torch
+
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return 1.0 - busy_us * 1e-6 / wall
+
+
+def _row_kernel_check(pk, opts, seed, chunk):
+    """Env NEE's row kernel against its plain version on the card, at a
+    200-sample step's rows and a launch's: the drawn texels (pdf column)
+    equal, directions and radiance within 1e-6 relative (the largest |Δ|
+    of each column printed), the per-geom table bit for bit the plain
+    table of the kernel's own directions; the row kernel's time (20
+    launches) beside the torch row build's. Returns the step's readings."""
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+
+    depth = opts.trace_depth
+    out = None
+    for samples in (200, chunk):
+        got = mk.env_nee_rows(pk, seed, 1, samples, depth)
+        want = mk.env_nee_rows_reference(pk, seed, 1, samples, depth)
+        diff = (got[:, :8] - want[:, :8]).abs()
+        col = [float(x) for x in diff.amax(dim=0)]
+        rel = float((diff[:, :6] / want[:, :6].abs().clamp_min(0.1)).max())
+        table_equal = torch.equal(
+            got[:, 8:], mk.env_row_table(pk, got[:, :3]).reshape(got.shape[0], -1))
+        texels_equal = torch.equal(got[:, 6:8], want[:, 6:8])
+        k_ms = _time_ms(lambda: mk.env_nee_rows(pk, seed, 1, samples, depth), reps=20)
+        t_ms = _time_ms(lambda: mk.build_env_nee_rows(pk.env.envmap, seed, 1, samples, depth),
+                        reps=20)
+        print(f"  env NEE rows, row kernel vs plain version, {samples * depth} rows "
+              f"[{8 + 6 * pk.num_geoms} floats each]: texels equal {texels_equal}, max |d| per "
+              f"column (dir xyz, radiance rgb, pdf, pad) {[f'{x:.3e}' for x in col]}, largest "
+              f"relative {rel:.3e} (bound 1e-6), bit-identical {torch.equal(got, want)}, table = "
+              f"plain table {table_equal}; row kernel {k_ms:.4f} ms, torch row build "
+              f"{t_ms:.4f} ms")
+        if not (texels_equal and table_equal and rel <= 1e-6 and bool(torch.isfinite(got).all())):
+            raise AssertionError("the row kernel disagrees with its plain version")
+        if out is None:
+            out = dict(rows=samples * depth, ms=k_ms, torch_ms=t_ms, max_abs=col, rel=rel,
+                       bit_identical=torch.equal(got, want))
+    return out
 
 
 # tests/test_envmap.py's furnace: a diffuse sphere under a constant map
@@ -1321,6 +1417,12 @@ def main() -> int:
               f"{launches - 1} rounds {times_k6['round'][0]:.4f} ms, bound "
               f"{times_k6['round'][2][0]:.4f}): launches x (time - bound) {loss:.3f} ms")
     print(f"  K6 over both adaptive legs: launches x (time - bound) {k6_loss:.3f} ms")
+    rk = env["rows"]
+    print("row kernel (part of K4's row): " + json.dumps(dict(
+        name="pt_env_rows", source=mk.SOURCE, rows_a_step=rk["rows"], ms_a_step=rk["ms"],
+        torch_row_build_ms_a_step=rk["torch_ms"], max_abs_err_by_column=rk["max_abs"],
+        bit_identical=rk["bit_identical"],
+        env_legs={k: dict(rays_per_s=v[0], idle_share=v[1]) for k, v in env["legs"].items()})))
     print(json.dumps({"kernels": [
         mk_entry("K1 megakernel", 2393, main_launches, max_abs_err, (ms, plain_ms, k1_bound)),
         mk_entry("K1b megakernel[refraction,dof,early_exit,throughput]", 1510, k1b_launches,

@@ -28,12 +28,16 @@
 //     map, resident in L2; plain global loads, no texture unit, whose
 //     bilinear weights have 8 fractional bits) settles each sample;
 //   2 exact + env NEE (K4): also, at every diffuse vertex, a visibility ray
-//     along the (iteration, depth) row's shared alias-sampled direction (a
-//     device table [num_samples * trace_depth, 8] that the wrapper builds
-//     before the launch; each lane reads the row of its own sample and
-//     depth, so one load instruction of a warp may read many rows, served
-//     from L1/L2), weighted by the balance heuristic, and the escape weighted
-//     against the sampler's nearest-texel pdf;
+//     along the (iteration, depth) row's shared alias-sampled direction,
+//     weighted by the balance heuristic, and the escape weighted against the
+//     sampler's nearest-texel pdf. The rows are a device table [num_samples
+//     * trace_depth, 8 + 6 * num_geoms] that a kernel of its own builds
+//     before the launch (pt_env_rows, below: the threefry draws, the alias
+//     draw and the bilinear radiance of each row, then per geom the row
+//     direction's object-space direction and its reciprocals, which every
+//     lane's env ray of that row shares); each lane reads the row of its own
+//     sample and depth, served from L1/L2, and its env ray transforms only
+//     its origin (occluded_row);
 //   3 split (K5): delta suns (a visibility ray toward each sun above the
 //     normal at every diffuse vertex) and an SH-9 residual sky on misses;
 //     with bg_external the depth-0 background is composited outside the
@@ -150,7 +154,11 @@
 // and in 98% of the iterations both draw streams. Under an environment map,
 // where most paths end within two vertices, that union outweighs the saved
 // slots; lanes there start samples 12 at a time (kBatch), and those
-// variants still run 14-27% slower than with a thread per pixel. The scene
+// variants still run 14-27% slower than with a thread per pixel. Which
+// pixels a warp's lanes hold does not set that time: a warp that takes its
+// next 32 pixels only once its lanes are done with the last (32 neighbours)
+// measured no faster, and queue chunks of 128 neighbours 26-42% slower (the
+// launch's tail; NVIDIA H100 80GB HBM3 at 700 W, PERF.md). The scene
 // and light tables are __grid_constant__ kernel parameters: they travel
 // with the launch, so no copy precedes it and launches on different streams
 // cannot overwrite each other's tables; the geom rows, read uniformly by
@@ -267,8 +275,10 @@ struct TileArgs {
 struct NoTiles {};
 
 // ENV 1/2: the strength-folded radiance rad[(y*w + x)*3 + c], the sampler's
-// pdf[y*w + x] and (ENV 2) env NEE's rows[(s*trace_depth + depth)*8 + k]
-// (dir xyz, bilinear radiance rgb, pdf, 0), all device memory.
+// pdf[y*w + x] and (ENV 2) env NEE's rows, row r = s*trace_depth + depth at
+// rows[r * (8 + 6 * num_geoms)]: dir xyz, bilinear radiance rgb, pdf, 0,
+// then geom k's entry of the direction (dir_entry) at 8 + 6k; all device
+// memory.
 struct EnvExact {
   const float* rad;
   const float* pdf;
@@ -466,11 +476,9 @@ static __device__ __forceinline__ void sky(float dy, float* r, float* g, float* 
   *b = ((1.0f - t_sky) + t_sky * 1.0f) * 0.5f;
 }
 
-// Geom k's object-space ray (unnormalized direction, so the slab/quadratic
-// parameter is the world distance).
-static __device__ __forceinline__ void object_ray(const SceneTables& sc, int k, float ox, float oy,
-                                                  float oz, float dx, float dy, float dz,
-                                                  float* q) {
+// Geom k's object-space origin q[0..2] (object_ray's first three terms).
+static __device__ __forceinline__ void object_origin(const SceneTables& sc, int k, float ox,
+                                                     float oy, float oz, float* q) {
   const float* iv = sc.geo + k * PT_GF;
   const int c0 = sc.perm[k * 3 + 0];
   const int c1 = sc.perm[k * 3 + 1];
@@ -479,17 +487,55 @@ static __device__ __forceinline__ void object_ray(const SceneTables& sc, int k, 
     q[0] = iv[0] * ox + iv[1] * oy + iv[2] * oz + iv[3];
     q[1] = iv[4] * ox + iv[5] * oy + iv[6] * oz + iv[7];
     q[2] = iv[8] * ox + iv[9] * oy + iv[10] * oz + iv[11];
+  } else {
+    // one nonzero per row of M^-1 (column perm[r]): 3 mul + 3 add
+    q[0] = iv[c0] * sel3(c0, ox, oy, oz) + iv[3];
+    q[1] = iv[4 + c1] * sel3(c1, ox, oy, oz) + iv[7];
+    q[2] = iv[8 + c2] * sel3(c2, ox, oy, oz) + iv[11];
+  }
+}
+
+// Geom k's object-space ray (unnormalized direction, so the slab/quadratic
+// parameter is the world distance): the origin, then the direction q[3..5].
+static __device__ __forceinline__ void object_ray(const SceneTables& sc, int k, float ox, float oy,
+                                                  float oz, float dx, float dy, float dz,
+                                                  float* q) {
+  object_origin(sc, k, ox, oy, oz, q);
+  const float* iv = sc.geo + k * PT_GF;
+  const int c0 = sc.perm[k * 3 + 0];
+  const int c1 = sc.perm[k * 3 + 1];
+  const int c2 = sc.perm[k * 3 + 2];
+  if (c0 < 0) {
     q[3] = iv[0] * dx + iv[1] * dy + iv[2] * dz;
     q[4] = iv[4] * dx + iv[5] * dy + iv[6] * dz;
     q[5] = iv[8] * dx + iv[9] * dy + iv[10] * dz;
   } else {
-    // one nonzero per row of M^-1 (column perm[r]): 6 mul + 3 add
-    q[0] = iv[c0] * sel3(c0, ox, oy, oz) + iv[3];
-    q[1] = iv[4 + c1] * sel3(c1, ox, oy, oz) + iv[7];
-    q[2] = iv[8 + c2] * sel3(c2, ox, oy, oz) + iv[11];
     q[3] = iv[c0] * sel3(c0, dx, dy, dz);
     q[4] = iv[4 + c1] * sel3(c1, dx, dy, dz);
     q[5] = iv[8 + c2] * sel3(c2, dx, dy, dz);
+  }
+}
+
+// What a visibility ray's test against geom k reads that no origin changes
+// (the sun table's and env NEE's row table's entry, 6 floats): the
+// direction's object-space direction (object_ray's) and, for a cube, its
+// three reciprocals, for a sphere |q_d|^2 and its reciprocal.
+static __device__ __forceinline__ void dir_entry(const SceneTables& sc, int k, float dx, float dy,
+                                                 float dz, float* e) {
+  float q[6];
+  object_ray(sc, k, 0.0f, 0.0f, 0.0f, dx, dy, dz, q);
+  e[0] = q[3];
+  e[1] = q[4];
+  e[2] = q[5];
+  if (k < sc.num_cubes) {
+    e[3] = 1.0f / q[3];
+    e[4] = 1.0f / q[4];
+    e[5] = 1.0f / q[5];
+  } else {
+    const float nq2 = q[3] * q[3] + q[4] * q[4] + q[5] * q[5];
+    e[3] = nq2;
+    e[4] = 1.0f / nq2;
+    e[5] = 0.0f;
   }
 }
 
@@ -769,31 +815,39 @@ static __device__ bool occluded_any(const SceneTables& sc, float ox, float oy, f
   return false;
 }
 
+// The env NEE ray's test (K4): occluded_any along a row's direction, whose
+// per-geom terms come from the row's table (tab[6k], dir_entry's, device
+// memory); only the origin is transformed here. The same float expressions
+// as occluded_any, so the same answer.
+static __device__ bool occluded_row(const SceneTables& sc, float ox, float oy, float oz,
+                                    const float* __restrict__ tab, float limit) {
+  const int num_geoms = sc.num_geoms;
+  const int num_cubes = sc.num_cubes;
+  for (int k = 0; k < num_geoms; ++k) {
+    float q[3];
+    object_origin(sc, k, ox, oy, oz, q);
+    const float* e = tab + 6 * k;
+    bool blocked;
+    if (k < num_cubes) {
+      blocked = cube_blocks(-0.5f - q[0], -0.5f - q[1], -0.5f - q[2], 0.5f - q[0], 0.5f - q[1],
+                            0.5f - q[2], __ldg(e + 3), __ldg(e + 4), __ldg(e + 5), limit);
+    } else {
+      const float c = q[0] * q[0] + q[1] * q[1] + q[2] * q[2] - 0.25f;
+      blocked = sphere_blocks(q[0], q[1], q[2], c, __ldg(e + 0), __ldg(e + 1), __ldg(e + 2),
+                              __ldg(e + 3), __ldg(e + 4), limit);
+    }
+    if (blocked) return true;
+  }
+  return false;
+}
+
 // The launch's sun table in shared memory (ENV 3): per (geom k, sun j), at
-// (k * num_suns + j) * 6, the sun's object-space direction (object_ray's)
-// and, for a cube, its three reciprocals, for a sphere |q_d|^2 and its
-// reciprocal: what every sun ray's test reads that no origin changes.
+// (k * num_suns + j) * 6, the sun's dir_entry.
 static __device__ void fill_sun_table(const SceneTables& sc, const EnvSplit& env, float* tab) {
   const int ns = env.num_suns;
   for (int i = threadIdx.x; i < ns * sc.num_geoms; i += PT_BLOCK) {
-    const int k = i / ns;
     const float* sd = env.sun + 6 * (i % ns);
-    float q[6];
-    object_ray(sc, k, 0.0f, 0.0f, 0.0f, sd[0], sd[1], sd[2], q);
-    float* e = tab + i * 6;
-    e[0] = q[3];
-    e[1] = q[4];
-    e[2] = q[5];
-    if (k < sc.num_cubes) {
-      e[3] = 1.0f / q[3];
-      e[4] = 1.0f / q[4];
-      e[5] = 1.0f / q[5];
-    } else {
-      const float nq2 = q[3] * q[3] + q[4] * q[4] + q[5] * q[5];
-      e[3] = nq2;
-      e[4] = 1.0f / nq2;
-      e[5] = 0.0f;
-    }
+    dir_entry(sc, i / ns, sd[0], sd[1], sd[2], tab + i * 6);
   }
 }
 
@@ -1615,11 +1669,11 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
             // direction of row (sample, depth), a shadow ray to 1e7 and the
             // balance heuristic against the diffuse lobe
             if (!glass) {
-              const float* row = env.rows + (s * o.trace_depth + depth) * 8;
+              const float* row = env.rows + (s * o.trace_depth + depth) * (8 + 6 * sc.num_geoms);
               const float ewx = __ldg(row + 0), ewy = __ldg(row + 1), ewz = __ldg(row + 2);
               const float ecos = nx * ewx + ny * ewy + nz * ewz;
               if (PT_MEGA_COUNTS) c_env = ecos > 0.0f;
-              if ((ecos > 0.0f) && !occluded_any(sc, hx, hy, hz, ewx, ewy, ewz, 1e7f)) {
+              if ((ecos > 0.0f) && !occluded_row(sc, hx, hy, hz, row + 8, 1e7f)) {
                 const float e_pdf = __ldg(row + 6);
                 const float ediff = 1.0f - m_refl;
                 const float e_pb = ediff * jmax(ecos, 0.0f) * kInvPi;
@@ -1965,12 +2019,13 @@ extern "C" int pt_megakernel_blocks_per_sm(int flags, int smem) {
 // queue item) units[num_samples*n*3] (*6 with env_mode 1), which the kernel
 // writes and pt_fold_samples sums into out; with env_mode 1-2 (exact, exact
 // + env NEE): env_rad[env_h*env_w*3],
-// env_pdf[env_h*env_w], with 2 also env_rows[num_samples*trace_depth*8].
-// env_mode 3 is the split mode (suns, SH, bg_external). `queue` is one
-// device counter that no launch on another stream uses meanwhile (zeroed on
-// `stream` here); `work` (PT_MEGA_WORK counters, zeroed by the caller) and
-// `owners[ceil(items/32)]` (items: the queue's, n or n * num_samples / group)
-// are the counting build's and null in any other.
+// env_pdf[env_h*env_w], with 2 also env_rows[num_samples*trace_depth*(8 +
+// 6*num_geoms)] (pt_env_rows_launch's). env_mode 3 is the split mode (suns,
+// SH, bg_external). `queue` is one device counter that no launch on another
+// stream uses meanwhile (zeroed on `stream` here); `work` (PT_MEGA_WORK
+// counters, zeroed by the caller) and `owners[ceil(items/32)]` (items: the
+// queue's, n or n * num_samples / group) are the counting build's and null in
+// any other.
 extern "C" int pt_megakernel_launch(
     float* out, int n, int width, int height, int seed, int iter_base,
     int tile, int num_samples, int trace_depth,
@@ -2060,4 +2115,189 @@ extern "C" int pt_megakernel_launch(
   const Queue q = {queue, work, owners};
   return launch_flags<0>(flags, samples, o, t, lt, ta, exact, split, out, units, q,
                          (cudaStream_t)stream);
+}
+
+// Env NEE's rows (K4's row table; the TPU path computes them in one jitted
+// XLA function, _build_env_nee_rows, megakernel.py:2200-2225, which the
+// port first ran as some 250 eager torch kernels a step). One thread per
+// row r = s * depth + d, in uint32 and f32 as ops.cuda.megakernel
+// .build_env_nee_rows computes it with torch on the card:
+//   - the uniforms of jax.random.uniform(fold_in(PRNGKey(seed ^
+//     0xE17B0075), iter_base + s), (depth, 2)) at counters 2d and 2d + 1
+//     (threefry-2x32, the jax_threefry_partitionable layout);
+//   - the alias draw of ops.envmap.sample_env and the bilinear
+//     ops.envmap.env_radiance of the drawn direction, each operation rounded
+//     on its own (-fmad=false) with the same CUDA math library's acosf,
+//     atan2f, sinf and cosf as torch; where torch divides by a Python
+//     number it multiplies by that number's float reciprocal, and so does
+//     this kernel;
+//   - then per geom the direction's dir_entry, which the env ray's test
+//     reads (occluded_row).
+// Bound: a few hundred integer and float operations and 32-128 bytes a row,
+// so at 400-1,600 rows a launch the launch itself, microseconds, sets the
+// time; the point is one launch where torch needed hundreds.
+struct EnvRowArgs {
+  const float* img;         // [h, w, 3] radiance, not strength-folded
+  const float* alias_prob;  // [h * w]
+  const int* alias_idx;     // [h * w]
+  const float* pdf;         // [h * w]
+  const float* strength;    // the map's strength, a device scalar
+  int h, w, rows, depth;
+  uint32_t key;        // uint32(seed) ^ 0xE17B0075
+  uint32_t iter_base;  // absolute iteration of sample 0
+  // the Python constants of the torch code, rounded to float as torch does
+  float f_max;       // 1 - 1e-7
+  float x_max;       // 1 - 1e-6
+  float inv_w;       // 1 / float(w): torch's x / w on the card
+  float pi_h;        // pi / h
+  float two_pi;      // 2 pi
+  float inv_two_pi;  // 1 / (2 pi)
+  float inv_pi;      // 1 / pi
+};
+
+// Threefry-2x32 with 20 rounds (jax.random's threefry2x32_p): key (k0, k1)
+// and counter words (x0, x1), in place.
+static __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
+                                                   uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int g = 0; g < 5; ++g) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rot[g & 1][i];
+      x0 += x1;
+      x1 = ((x1 << r) | (x1 >> (32 - r))) ^ x0;
+    }
+    x0 += ks[(g + 1) % 3];
+    x1 += ks[(g + 2) % 3] + (uint32_t)(g + 1);
+  }
+}
+
+// jax.random.uniform's float of one word of bits: [1, 2) minus 1.
+static __device__ __forceinline__ float bits_u01(uint32_t bits) {
+  return jmax(__uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f, 0.0f);
+}
+
+__global__ void pt_env_rows(const __grid_constant__ SceneTables sc,
+                            const __grid_constant__ EnvRowArgs a, float* __restrict__ out) {
+  const int r = (int)(blockIdx.x * blockDim.x + threadIdx.x);
+  if (r >= a.rows) return;
+  const int s = r / a.depth;
+  const int d = r - s * a.depth;
+  // the sample's key: fold_in(key, iteration), the counter (0, iteration)
+  uint32_t k0 = 0u, k1 = a.iter_base + (uint32_t)s;
+  threefry2x32(0u, a.key, k0, k1);
+  uint32_t b0 = 0u, b1 = (uint32_t)(2 * d);
+  threefry2x32(k0, k1, b0, b1);
+  uint32_t c0 = 0u, c1 = (uint32_t)(2 * d + 1);
+  threefry2x32(k0, k1, c0, c1);
+  const float u1 = bits_u01(b0 ^ b1);
+  const float u2 = bits_u01(c0 ^ c1);
+
+  // sample_env: the alias cell from u1's integer part, stay or alias from
+  // its fraction, whose leftover is the azimuth offset in the texel
+  const int n_tex = a.h * a.w;
+  const float scaled = u1 * (float)n_tex;
+  const int cell = min(max((int)scaled, 0), n_tex - 1);
+  const float f = jmin(jmax(scaled - (float)cell, 0.0f), a.f_max);
+  const float p_stay = __ldg(a.alias_prob + cell);
+  const bool take_alias = f >= p_stay;
+  const int idx = take_alias ? __ldg(a.alias_idx + cell) : cell;
+  float xfrac = take_alias ? (f - p_stay) / jmax(1.0f - p_stay, 1e-12f)
+                           : f / jmax(p_stay, 1e-12f);
+  xfrac = jmin(jmax(xfrac, 0.0f), a.x_max);
+  const int y = idx / a.w;
+  const int x = idx - y * a.w;
+  const float u = ((float)x + xfrac) * a.inv_w;
+  const float yf = (float)y;
+  const float cos0 = cosf(yf * a.pi_h);
+  const float cos1 = cosf((yf + 1.0f) * a.pi_h);
+  const float cos_t = cos0 + u2 * (cos1 - cos0);
+  const float theta = acosf(jmin(jmax(cos_t, -1.0f), 1.0f));
+  const float phi = (u - 0.5f) * a.two_pi;
+  const float st = sinf(theta);
+  const float dx = st * sinf(phi);
+  const float dy = cos_t;
+  const float dz = -st * cosf(phi);
+
+  // env_radiance: bilinear, wrapped in azimuth, clamped at the poles
+  const float ue = 0.5f + atan2f(dx, -dz) * a.inv_two_pi;
+  const float ve = acosf(jmin(jmax(dy, -1.0f), 1.0f)) * a.inv_pi;
+  const float fx = ue * (float)a.w - 0.5f;
+  const float fy = ve * (float)a.h - 0.5f;
+  const float x0 = floorf(fx);
+  const float y0 = floorf(fy);
+  const float tx = fx - x0;
+  const float ty = fy - y0;
+  int x0i = (int)x0 % a.w;
+  x0i = x0i < 0 ? x0i + a.w : x0i;
+  const int x1i = (x0i + 1) % a.w;
+  const int y0i = min(max((int)y0, 0), a.h - 1);
+  const int y1i = min(y0i + 1, a.h - 1);
+  const float strength = __ldg(a.strength);
+  float* row = out + (size_t)r * (8 + 6 * sc.num_geoms);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float c00 = __ldg(a.img + (y0i * a.w + x0i) * 3 + c);
+    const float c01 = __ldg(a.img + (y0i * a.w + x1i) * 3 + c);
+    const float c10 = __ldg(a.img + (y1i * a.w + x0i) * 3 + c);
+    const float c11 = __ldg(a.img + (y1i * a.w + x1i) * 3 + c);
+    const float top = c00 + (c01 - c00) * tx;
+    const float bot = c10 + (c11 - c10) * tx;
+    row[3 + c] = (top + (bot - top) * ty) * strength;
+  }
+  row[0] = dx;
+  row[1] = dy;
+  row[2] = dz;
+  row[6] = __ldg(a.pdf + idx);
+  row[7] = 0.0f;
+  for (int k = 0; k < sc.num_geoms; ++k) dir_entry(sc, k, dx, dy, dz, row + 8 + 6 * k);
+}
+
+// Builds env NEE's rows of iterations iter_base .. iter_base + num_samples -
+// 1 on `stream`: out[num_samples * depth * (8 + 6 * num_geoms)] (device),
+// from the map's device tables (img[h*w*3], alias_prob/alias_idx/pdf[h*w],
+// strength[1]) and the host scene tables geo[num_geoms*21], perm[num_geoms*3];
+// returns the CUDA error code (0 = launched).
+extern "C" int pt_env_rows_launch(float* out, int num_samples, int depth, int iter_base, int seed,
+                                  const float* img, const float* alias_prob, const int* alias_idx,
+                                  const float* pdf, const float* strength, int h, int w,
+                                  const float* geo, const int* perm, int num_cubes, int num_geoms,
+                                  void* stream) {
+  if (!out || num_samples < 0 || depth < 1 || h <= 0 || w <= 0 || !img || !alias_prob ||
+      !alias_idx || !pdf || !strength || num_geoms < 0 || num_geoms > PT_MAX_GEOMS ||
+      num_cubes < 0 || num_cubes > num_geoms || (long long)num_samples * depth > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const int rows = num_samples * depth;
+  if (rows == 0) return 0;
+  SceneTables t;
+  memset(&t, 0, sizeof(t));
+  memcpy(t.geo, geo, sizeof(float) * (size_t)num_geoms * PT_GF);
+  memcpy(t.perm, perm, sizeof(int) * (size_t)num_geoms * 3);
+  t.num_cubes = num_cubes;
+  t.num_geoms = num_geoms;
+  EnvRowArgs a;
+  a.img = img;
+  a.alias_prob = alias_prob;
+  a.alias_idx = alias_idx;
+  a.pdf = pdf;
+  a.strength = strength;
+  a.h = h;
+  a.w = w;
+  a.rows = rows;
+  a.depth = depth;
+  a.key = (uint32_t)seed ^ 0xE17B0075u;
+  a.iter_base = (uint32_t)iter_base;
+  a.f_max = (float)(1.0 - 1e-7);
+  a.x_max = (float)(1.0 - 1e-6);
+  a.inv_w = 1.0f / (float)w;
+  a.pi_h = (float)(3.14159265358979323846 / (double)h);
+  a.two_pi = (float)6.283185307179586;
+  a.inv_two_pi = (float)(1.0 / 6.283185307179586);
+  a.inv_pi = (float)(1.0 / 3.14159265358979323846);
+  pt_env_rows<<<(rows + PT_BLOCK - 1) / PT_BLOCK, PT_BLOCK, 0, (cudaStream_t)stream>>>(t, a, out);
+  return (int)cudaGetLastError();
 }

@@ -423,6 +423,59 @@ def build_env_nee_rows(env, seed: int, iter_base: int, num_samples: int,
     return torch.cat([d, le, pdf[:, None], torch.zeros_like(pdf)[:, None]], dim=-1)
 
 
+def env_row_table(packed: PackedScene, dirs: torch.Tensor) -> torch.Tensor:
+    """[R, num_geoms, 6] f32: per direction (``dirs`` [R, 3], env NEE's row
+    directions) and geom, what the env ray's test against that geom reads
+    that no origin changes, in :func:`_occluded_any`'s expressions: the
+    object-space direction (``_object_ray``'s) and, for a cube, its three
+    reciprocals, for a sphere ``|q_d|²`` and its reciprocal (then 0)."""
+    dx, dy, dz = dirs[:, 0], dirs[:, 1], dirs[:, 2]
+    zero = torch.zeros((), dtype=torch.float32, device=dirs.device)
+    entries = []
+    for k, iv, _it, perm in _geom_rows(packed):
+        _, _, _, qdx, qdy, qdz = _object_ray(iv, perm, zero, zero, zero, dx, dy, dz)
+        if k < packed.num_cubes:
+            e = (qdx, qdy, qdz, 1.0 / qdx, 1.0 / qdy, 1.0 / qdz)
+        else:
+            nq2 = qdx * qdx + qdy * qdy + qdz * qdz
+            e = (qdx, qdy, qdz, nq2, 1.0 / nq2, torch.zeros_like(nq2))
+        entries.append(torch.stack(e, dim=-1))
+    if not entries:
+        return torch.zeros((dirs.shape[0], 0, 6), dtype=torch.float32, device=dirs.device)
+    return torch.stack(entries, dim=1)
+
+
+def env_nee_rows_reference(packed: PackedScene, seed: int, iter_base: int, num_samples: int,
+                           trace_depth: int) -> torch.Tensor:
+    """Plain version of the row kernel (``pt_env_rows``): env NEE's rows
+    [S·D, 8 + 6·num_geoms] on the map's device, :func:`build_env_nee_rows`'
+    eight columns, then :func:`env_row_table`'s entries of the row's
+    direction, geom by geom."""
+    rows = build_env_nee_rows(packed.env.envmap, seed, iter_base, num_samples, trace_depth)
+    table = env_row_table(packed, rows[:, :3])
+    return torch.cat([rows, table.reshape(rows.shape[0], -1)], dim=-1)
+
+
+def env_nee_rows(packed: PackedScene, seed: int, iter_base: int, num_samples: int,
+                 trace_depth: int) -> torch.Tensor:
+    """Env NEE's rows of iterations ``iter_base .. iter_base+num_samples-1``
+    with their per-geom table, [S·D, 8 + 6·num_geoms] (the layout the
+    kernel's env NEE reads; a slice of whole samples is the rows of those
+    iterations). On a map on a CUDA device one launch of the row kernel
+    builds them; on the CPU :func:`env_nee_rows_reference`, the kernel's
+    plain version, table included: the plain megakernel step reads only
+    the first eight columns, but the wrapper returns the kernel's layout on
+    either device, so its callers and tests see one function."""
+    if packed.env is None or packed.env.mode != "exact":
+        raise ValueError("env NEE rows need the packed scene's exact environment tables")
+    device = packed.env.envmap.device
+    if device.type == "cuda":
+        return KERNEL.env_rows(packed, seed, iter_base, num_samples, trace_depth)
+    if device.type == "cpu":
+        return env_nee_rows_reference(packed, seed, iter_base, num_samples, trace_depth)
+    raise ValueError(f"unsupported device {device}")
+
+
 # ─────────────────────────────── options ───────────────────────────────
 
 
@@ -1608,6 +1661,7 @@ def warp_schedule(
     owners: Optional[np.ndarray] = None,
     vis: Optional[dict] = None,
     group: Optional[int] = None,
+    width: Optional[int] = None,
 ) -> dict:
     """Emulate the kernel's warps on the plain version's path lengths
     (:func:`path_lengths`; ``steps``/``draws`` [S, N] by sample and by the
@@ -1664,7 +1718,12 @@ def warp_schedule(
     lane that served it (``lane_of``, warp·32 + lane), the number of times
     it was served (``visits``), its samples settled (``samples``) and
     whether every pixel's samples settled in ascending order
-    (``in_order``)."""
+    (``in_order``). With the frame's ``width`` (items in the kernel's pixel
+    order, row-major), ``spread`` is how far apart a warp's pixels lie: the
+    mean, over the warp iterations with an active lane, of the bounding box
+    of the pixels its lanes hold, as (columns, rows), and ``spread_area`` the
+    mean of its area (a thread per pixel: 32 x 1 where 32 divides the
+    width); None without ``width``."""
     steps = np.asarray(steps, np.int64)
     draws = np.asarray(draws, np.int64)
     sample_units = group is not None and group < steps.shape[0]
@@ -1674,19 +1733,33 @@ def warp_schedule(
             vis = dict(zip(vis, item_paths(group, *(np.asarray(v) for v in vis.values()))))
     num_samples, n = steps.shape
     zero_vis = dict.fromkeys(WORK[3:], 0)
+    if width is not None and width < 1:
+        raise ValueError(f"width must be positive, got {width}")
     if schedule == "thread":
         pad = (-n) % 32
         per_warp = np.pad(steps, ((0, 0), (0, pad))).reshape(num_samples, -1, 32)
         iters = int(per_warp.max(axis=2).sum())
         lanes = int(steps.sum())
+        by_warp = per_warp.max(axis=2).sum(axis=0)
+        spread = area = None
+        if width is not None:
+            # a warp holds its 32 consecutive pixels throughout
+            first = np.arange(0, n, 32)
+            last = np.minimum(first + 31, n - 1)
+            rows = last // width - first // width + 1
+            cols = np.where(rows == 1, last - first + 1, width)
+            w = by_warp / max(iters, 1)
+            spread = (float((cols * w).sum()), float((rows * w).sum()))
+            area = float((cols * rows * w).sum())
         return dict(
             warp_iters=iters, lane_iters=lanes, both_draws=0, **zero_vis, added=0,
             settle_iters=num_samples * per_warp.shape[1], repeated=0,
             light_pass_sizes=np.zeros(33, np.int64),
-            warp_iters_by_warp=per_warp.max(axis=2).sum(axis=0),
+            warp_iters_by_warp=by_warp,
             efficiency=lanes / (32 * iters) if iters else 1.0,
             lane_of=np.arange(n), visits=np.ones(n, np.int64),
             samples=np.full(n, num_samples, np.int64), in_order=True,
+            spread=spread, spread_area=area,
         )
     if schedule != "regen":
         raise ValueError(f"unknown schedule {schedule!r}")
@@ -1777,6 +1850,7 @@ def warp_schedule(
         return pix.copy()
 
     iters = lanes = both = settles = repeated = 0
+    box = np.zeros(3)  # the held pixels' bounding boxes: columns, rows, area
     warp_busy = np.zeros(warps, np.int64)
     refill()
     while True:
@@ -1790,6 +1864,12 @@ def warp_schedule(
         busy = act.any(axis=1)
         iters += int(busy.sum())
         warp_busy += busy
+        if width is not None:
+            r, c = pix // width, pix % width
+            big = np.iinfo(np.int64).max
+            rows = (np.where(held, r, -1).max(axis=1) - np.where(held, r, big).min(axis=1) + 1)
+            cols = (np.where(held, c, -1).max(axis=1) - np.where(held, c, big).min(axis=1) + 1)
+            box += [cols[busy].sum(), rows[busy].sum(), (cols * rows)[busy].sum()]
         lanes += int(act.sum())
         p, sm, d = pix[act], smp[act], dep[act]
         cast = np.zeros((warps, 32), bool)
@@ -1872,6 +1952,8 @@ def warp_schedule(
         repeated=repeated, light_pass_sizes=pass_sizes, warp_iters_by_warp=warp_busy,
         efficiency=lanes / (32 * iters) if iters else 1.0,
         lane_of=lane_of, visits=visits, samples=settled, in_order=in_order,
+        spread=(float(box[0] / iters), float(box[1] / iters)) if width and iters else None,
+        spread_area=float(box[2] / iters) if width and iters else None,
     )
 
 
@@ -1892,6 +1974,8 @@ class Megakernel:
         self.counts = "-DPT_MEGA_COUNT" in self.flags
         self.launches = 0
         self.launches_by_variant: dict = {}
+        # launches of the row kernel (env_rows), counted apart
+        self.row_launches = 0
         self._lib: Optional[ctypes.CDLL] = None
         # the pixel queue's counter, one per (device, stream): a launch zeroes
         # it on its stream first, so launches on one stream reuse it in turn
@@ -1901,6 +1985,7 @@ class Megakernel:
     def reset_counts(self) -> None:
         self.launches = 0
         self.launches_by_variant = {}
+        self.row_launches = 0
 
     def _fn(self):
         if self._lib is None:
@@ -1922,8 +2007,50 @@ class Megakernel:
             occupancy = lib.pt_megakernel_blocks_per_sm
             occupancy.restype = ctypes.c_int
             occupancy.argtypes = [i, i]
+            rows = lib.pt_env_rows_launch
+            rows.restype = ctypes.c_int
+            rows.argtypes = [p, i, i, i, i, p, p, p, p, p, i, i, p, p, i, i, p]
             self._lib = lib
         return self._lib.pt_megakernel_launch
+
+    def env_rows(self, packed: PackedScene, seed: int, iter_base: int, num_samples: int,
+                 trace_depth: int) -> torch.Tensor:
+        """Env NEE's rows with their per-geom table (:func:`env_nee_rows`),
+        [S·D, 8 + 6·num_geoms], from one launch of the row kernel
+        ``pt_env_rows`` on the current stream of the map's CUDA device
+        (counted in ``row_launches``)."""
+        env = packed.env
+        if env is None or env.mode != "exact":
+            raise ValueError("env NEE rows need the packed scene's exact environment tables")
+        em = env.envmap
+        device = em.device
+        if device.type != "cuda":
+            raise ValueError(f"the row kernel needs a CUDA device, got {device}")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        tabs = (em.img, em.alias_prob, em.alias_idx, em.pdf, em.strength)
+        for t, dtype in zip(tabs, (torch.float32,) * 2 + (torch.int32,) + (torch.float32,) * 2):
+            if t.device != device or t.dtype != dtype or not t.is_contiguous():
+                raise ValueError(f"the map's tables must be contiguous tensors on {device}")
+        h, w = env.height, env.width
+        if packed.num_geoms > MAX_GEOMS:
+            raise ValueError(f"scene has {packed.num_geoms} geoms; the kernel's tables hold "
+                             f"{MAX_GEOMS}")
+        self._fn()
+        out = torch.empty((num_samples * trace_depth, 8 + 6 * packed.num_geoms),
+                          dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            self.row_launches += 1
+            err = self._lib.pt_env_rows_launch(
+                out.data_ptr(), int(num_samples), int(trace_depth), int(iter_base),
+                kernel_seed(seed), *(t.data_ptr() for t in tabs), h, w,
+                packed.geo.ctypes.data, packed.perm.ctypes.data, packed.num_cubes,
+                packed.num_geoms, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"env NEE row kernel launch failed: CUDA error {err}")
+        return out
 
     def blocks_per_sm(self, opts: KernelOptions, tiles: bool = False, smem: int = 0) -> int:
         """The blocks of this option set's compile-time variant that one SM
@@ -1961,13 +2088,14 @@ class Megakernel:
         :func:`tile_group` picks unless given; below ``num_samples`` each
         sample settles into a unit of a scratch tensor, which a second
         kernel sums in sample order. Env NEE reads the shared rows of this launch's
-        iterations, ``env_rows`` [num_samples·trace_depth, 8] on ``device``,
-        which are built here before the launch when not given
-        (:func:`build_env_nee_rows`). The counting build (:data:`COUNTING`)
-        takes ``work``, ``len(WORK)`` int64 counters it adds to, and
-        ``owners``, int32 [ceil(items/32)], where it writes the warp that
-        took each chunk of 32 queue items (pixels, or the tile dispatch's
-        items); any other build raises on them."""
+        iterations with their per-geom table, ``env_rows`` [num_samples·
+        trace_depth, 8 + 6·num_geoms] on ``device`` (:func:`env_nee_rows`),
+        which this binding's row kernel builds before the launch when not
+        given. The counting build (:data:`COUNTING`) takes ``work``,
+        ``len(WORK)`` int64 counters it adds to, and ``owners``, int32
+        [ceil(items/32)], where it writes the warp that took each chunk of 32
+        queue items (pixels, or the tile dispatch's items); any other build
+        raises on them."""
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"the CUDA megakernel needs a CUDA device, got {device}")
@@ -2029,14 +2157,13 @@ class Megakernel:
             if env_mode == 2:
                 rows = env_rows
                 if rows is None:
-                    rows = build_env_nee_rows(
-                        env.envmap, seed, iter_base, num_samples, opts.trace_depth
-                    )
-                if (rows.shape != (num_samples * opts.trace_depth, 8) or rows.device != device
+                    rows = self.env_rows(packed, seed, iter_base, num_samples, opts.trace_depth)
+                shape = (num_samples * opts.trace_depth, 8 + 6 * packed.num_geoms)
+                if (rows.shape != shape or rows.device != device
                         or rows.dtype != torch.float32 or not rows.is_contiguous()):
                     raise ValueError(
-                        f"env NEE rows must be contiguous f32 [{num_samples * opts.trace_depth}, 8] "
-                        f"on {device}, got {tuple(rows.shape)} {rows.dtype} on {rows.device}"
+                        f"env NEE rows must be contiguous f32 {list(shape)} on {device} "
+                        f"(env_nee_rows), got {tuple(rows.shape)} {rows.dtype} on {rows.device}"
                     )
         elif env_mode == 3:
             suns = np.ascontiguousarray(env.suns.reshape(-1), np.float32)
@@ -2205,8 +2332,9 @@ def render_samples(
     streams. ``packed`` (from ``pack_scene(scene, nee=opts.nee,
     config=config)``) saves re-reading the scene tables on every call, and
     with it the call reads nothing back from the device. ``env_rows`` are
-    env NEE's rows of these iterations if the caller built them (a slice of
-    a larger table is fine: rows are keyed by absolute iteration). A scene
+    env NEE's rows of these iterations if the caller built them
+    (:func:`env_nee_rows`, with their per-geom table; a slice of a larger
+    table is fine: rows are keyed by absolute iteration). A scene
     on a CUDA device runs the CUDA kernel; a scene on the CPU runs the plain
     version. In split mode without antialiasing or lens, the exact
     background is added after the launch."""

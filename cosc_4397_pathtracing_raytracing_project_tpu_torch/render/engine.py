@@ -146,8 +146,9 @@ def make_pallas_step():
     tables: the split mode's suns, SH and composited background) are
     derived once per scene object and configuration (``set_camera``
     replaces the scene, which repacks them). Under env NEE the shared rows
-    of all of a step's iterations are built once, before its first launch,
-    and each launch reads its slice."""
+    of all of a step's iterations, with their per-geom table, are built
+    once, before its first launch (on the card by one launch of the row
+    kernel, ``megakernel.env_nee_rows``), and each launch reads its slice."""
     packed_key = packed = opts = None
 
     def step(scene: Scene, state: RenderState, config: RenderConfig, num_samples: int):
@@ -158,8 +159,8 @@ def make_pallas_step():
             packed = megakernel.pack_scene(scene, nee=opts.nee, config=config)
         rows = None
         if opts.env_nee:
-            rows = megakernel.build_env_nee_rows(
-                scene.envmap, state.seed, state.iteration + 1, num_samples, config.trace_depth
+            rows = megakernel.env_nee_rows(
+                packed, state.seed, state.iteration + 1, num_samples, config.trace_depth
             )
         accum = state.accum
         done = 0

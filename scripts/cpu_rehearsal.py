@@ -19,7 +19,12 @@ compile-time variants through ctypes. For each case it prints:
 - with ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked
   with git archive into build/), the same case on that checkout's source:
   whether the two outputs are bit-identical, else their share above 1e-3
-  and largest |d|.
+  and largest |d|;
+- for env NEE, the row kernel (``pt_env_rows``) against the plain
+  ``env_nee_rows_reference``: whether the integer draws (the pdf column)
+  agree, the largest |d| of the directions and radiance (the CPU's
+  trigonometry again), and whether the per-geom table equals
+  ``env_row_table`` of the kernel's own directions bit for bit.
 
 The tile dispatch cases run with queue items of one sample, of two and of
 all of a pixel's samples. Exits non-zero if a counting build disagrees with
@@ -60,6 +65,8 @@ SED = (
     r"s/pt_fold_samples<<<\(.*\), 256, 0, stream>>>(/shim_launch(pt_fold_samples, \1, 256, 0, "
     r"stream, /",
     r"s/extern __shared__ float s_sun\[\];/float* s_sun = shim_dyn.data();/",
+    r"s/pt_env_rows<<<\(.*\), PT_BLOCK, 0, (cudaStream_t)stream>>>(/shim_launch(pt_env_rows, \1, "
+    r"PT_BLOCK, 0, (cudaStream_t)stream, /",
 )
 
 
@@ -80,15 +87,22 @@ def build(source, counting):
         subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
                         "-pthread", f"-I{SHIM}", *flags, "-x", "c++", cpp, "-o", lib],
                        check=True)
-    fn = ctypes.CDLL(lib).pt_megakernel_launch
+    dll = ctypes.CDLL(lib)
+    fn = dll.pt_megakernel_launch
     fn.restype = ctypes.c_int
     i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
     # a source with queue items for the tile dispatch takes (group, units)
-    # after the tile count
+    # after the tile count; one with env NEE's row kernel reads the rows
+    # with their per-geom table
     groups = "int num_tiles, int group," in text
     fn.argtypes = ([p] + [i] * 12 + [f] + [i] * 4 + [p] * 5 + [i] * 3 + [p, p, i, p, p, p, i]
                    + ([i, p] if groups else []) + [i, p, p, p, i, i, p, i, p, i, p, p, p, p])
-    return fn, groups
+    rows = None
+    if "pt_env_rows_launch" in text:
+        rows = dll.pt_env_rows_launch
+        rows.restype = ctypes.c_int
+        rows.argtypes = [p, i, i, i, i, p, p, p, p, p, i, i, p, p, i, i, p]
+    return fn, groups, rows
 
 
 def launch(lib, packed, opts, seed, iter_base, num_samples, tiles=None, group=None,
@@ -96,7 +110,7 @@ def launch(lib, packed, opts, seed, iter_base, num_samples, tiles=None, group=No
     """One launch of a shim build, as Megakernel.__call__ makes it on a
     card: the [N, 3] output, and for a counting build its counters and the
     warp of each chunk of 32 queue items."""
-    fn, groups = lib
+    fn, groups, row_kernel = lib
     lights_f = lights_i = None
     num_lights = 0
     if opts.nee:
@@ -118,8 +132,12 @@ def launch(lib, packed, opts, seed, iter_base, num_samples, tiles=None, group=No
     if env_mode in (1, 2):
         rad, pdf = env.rad.contiguous(), env.pdf.contiguous()
         if env_mode == 2:
-            rows = mk.build_env_nee_rows(env.envmap, seed, iter_base, num_samples,
-                                         opts.trace_depth).contiguous()
+            if row_kernel is not None:  # the rows with their per-geom table
+                rows = mk.env_nee_rows_reference(packed, seed, iter_base, num_samples,
+                                                 opts.trace_depth).contiguous()
+            else:
+                rows = mk.build_env_nee_rows(env.envmap, seed, iter_base, num_samples,
+                                             opts.trace_depth).contiguous()
     elif env_mode == 3:
         suns = np.ascontiguousarray(env.suns.reshape(-1), np.float32)
         sh = np.ascontiguousarray(env.sh.reshape(-1), np.float32)
@@ -150,6 +168,27 @@ def launch(lib, packed, opts, seed, iter_base, num_samples, tiles=None, group=No
     if work_len:
         return out, dict(zip(mk.WORK, work.tolist())), owners.numpy()
     return out
+
+
+def check_rows(lib, packed, opts, seed, iter_base, num_samples):
+    """The shim's row kernel against the plain version: a line of text."""
+    rows_fn = lib[2]
+    env = packed.env
+    em = env.envmap
+    want = mk.env_nee_rows_reference(packed, seed, iter_base, num_samples, opts.trace_depth)
+    got = torch.full_like(want, float("nan"))
+    tabs = [t.contiguous() for t in (em.img, em.alias_prob, em.alias_idx, em.pdf, em.strength)]
+    err = rows_fn(got.data_ptr(), num_samples, opts.trace_depth, iter_base, kernel_seed(seed),
+                  *(t.data_ptr() for t in tabs), env.height, env.width, packed.geo.ctypes.data,
+                  packed.perm.ctypes.data, packed.num_cubes, packed.num_geoms, None)
+    if err != 0:
+        raise RuntimeError(f"shim row kernel failed: error {err}")
+    table = mk.env_row_table(packed, got[:, :3]).reshape(got.shape[0], -1)
+    same_table = torch.equal(got[:, 8:], table)
+    return (f"rows: pdf column equal {torch.equal(got[:, 6], want[:, 6])}, "
+            f"max |d| dir {float((got[:, :3] - want[:, :3]).abs().max()):.2e} "
+            f"radiance {float((got[:, 3:6] - want[:, 3:6]).abs().max()):.2e}, "
+            f"table = env_row_table of its directions {same_table}"), same_table
 
 
 def agreement(got, want):
@@ -243,6 +282,10 @@ def main() -> int:
             print(line, flush=True)
             if not equal:
                 print(f"  counted  {counted}\n  emulated {({k: em[k] for k in mk.WORK})}")
+        if opts.env_nee and libs["change"][2] is not None:
+            line, same = check_rows(libs["change"], packed, opts, 7, base, samples)
+            ok = ok and same
+            print(f"{name} {line}", flush=True)
     return 0 if ok else 1
 
 

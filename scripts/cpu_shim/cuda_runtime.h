@@ -128,4 +128,5 @@ static void shim_launch(K kernel, int blocks, int threads, int smem, cudaStream_
   }
 }
 static inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+static inline float __uint_as_float(unsigned i) { float f; memcpy(&f, &i, 4); return f; }
 static inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }

@@ -2,8 +2,9 @@
 """Measure the PyTorch/CUDA port's kernels on one CUDA card.
 
     python3 scripts/torch_measure.py [--out build/torch_measure.json]
-        [--legs megakernel,ab,schedule,mesh,mesh-kernels,mesh-host]
-        [--parent DIR [--diag DIR,...] [--ab-flags="-DX;-DY"]]
+        [--legs megakernel,ab,schedule,env,mesh,mesh-kernels,mesh-host]
+        [--parent DIR [--diag DIR,...] [--diag-edits NAME,...] [--ab-flags="-DX;-DY"]]
+        [--cases REGEX]
 
 With ``--parent DIR`` (a parent commit's checkout, e.g. unpacked with git
 archive into a git-ignored directory), the megakernel leg, or ``--legs ab``
@@ -22,6 +23,18 @@ each side's NEE variant's SASS. Each ``--diag`` checkout (a diagnostic
 build: an edited copy of a package) and each ``--ab-flags`` set (this
 checkout's kernel built with those nvcc flags) joins the variants' turns,
 with its ptxas registers and spills.
+
+The environment leg (``--legs env``, not in the default): the exact, env NEE
+and split legs (Renderer(env_spheres.txt, samples_per_launch=200),
+render(1000)) of this checkout and, with ``--parent``, of the parent's, in
+turns: rays/s of each lap, and one profiled lap each (the megakernel's
+device time, the other kernels' device time and launches, the idle share);
+then env NEE's row build of one step (1,600 rows) and one launch (400):
+device time, host time, kernels launched.
+
+``--cases REGEX`` restricts the ab and schedule legs to the cases it
+matches; ``--diag-edits NAME,...`` makes each diagnostic copy of
+DIAG_EDITS (under build/diag_NAME) and adds it to the A/B turns.
 
 The schedule leg (``--legs schedule``, not in the default): the megakernel's
 counting build (warp iterations of the bounce loop, active lane-iterations,
@@ -65,8 +78,9 @@ scenes/cornell.txt, depth 8, seed 0; times from CUDA events, each kernel row
   once under torch.profiler: device time per kernel and idle share;
 - the environment variants on scenes/env_spheres.txt (800×800, depth 8, the
   meadow map), 20 timed 50-sample launches each: exact (independent, sobol,
-  refraction), env NEE (on prebuilt rows; the build of one launch's rows
-  is timed on its own), split with the background composited outside and
+  refraction), env NEE (on prebuilt rows; the build of one launch's rows,
+  by the row kernel and by the torch build it replaced, is timed on its
+  own), split with the background composited outside and
   with antialiasing, and the tile dispatch with the exact environment over
   16 tiles;
 - the exact, env-NEE and split legs (Renderer(env_spheres).render(1000),
@@ -448,7 +462,7 @@ def sass_census(lib_path, function_re):
     return dict(function=census(body), loops=loops)
 
 
-def measure_schedule(device, out):
+def measure_schedule(device, out, cases_re=None):
     """The bounce loop's warp schedule: the counting build against
     warp_schedule on the plain version's path lengths, main, glass + lens +
     NEE and exact environment, one 50-sample launch at 800x800; the main
@@ -467,12 +481,15 @@ def measure_schedule(device, out):
                                               sampler="sobol"), None),
         "nee_aa": (golden, RenderConfig(nee=True, antialias=True, sampler="sobol"), None),
         "env_exact": (env, RenderConfig(), None),
+        "env_exact_sobol": (env, RenderConfig(sampler="sobol"), None),
         "env_nee": (env, RenderConfig(nee=True), None),
         "split": (env, RenderConfig(env_mode="split"), None),
         "k6_round": (golden, RenderConfig(nee=True, sampler="sobol"),
                      adaptive_tiles(make_tile_layout, device, "round")),
     }
     for name, (sc, cfg, tl) in cases.items():
+        if cases_re and not re.search(cases_re, name):
+            continue
         opts = mk.kernel_options(cfg, sc)
         pk = mk.pack_scene(sc, nee=opts.nee, config=cfg)
         st = {}
@@ -508,9 +525,10 @@ def measure_schedule(device, out):
             em = mk.warp_schedule(steps, draws, "thread" if sched == "thread" else mk.SCHEDULE,
                                   **mk.schedule_args(opts, tl is not None), vis=v,
                                   owners=None if sched == "thread" else owners,
-                                  group=None if sched == "thread" else group)
+                                  group=None if sched == "thread" else group,
+                                  width=pk.width if tl is None else None)
             row[sched] = {k: em[k] for k in mk.WORK + ("efficiency", "settle_iters", "repeated",
-                                                       "added")}
+                                                       "added", "spread", "spread_area")}
             # the launch's tail: each warp's iterations, the busiest against
             # the mean
             by_warp = em["warp_iters_by_warp"]
@@ -559,12 +577,20 @@ def main() -> int:
     ap.add_argument("--ab-flags", default="",
                     help="with --parent: ';'-separated sets of extra nvcc flags, each a further "
                          "build of this checkout's megakernel in the A/B turns")
+    ap.add_argument("--diag-edits", default="",
+                    help="with --parent: ','-separated names of DIAG_EDITS, each a copy of this "
+                         "checkout's package under build/ with that edit, joining the turns as "
+                         "--diag does")
+    ap.add_argument("--cases", default=None,
+                    help="a regular expression: the ab and schedule legs run only the cases "
+                         "whose names it matches")
     ap.add_argument("--legs", default="megakernel,mesh",
                     help="comma-separated: megakernel, ab (the A/B alone, with --parent), "
-                         "schedule, mesh, mesh-kernels, mesh-host")
+                         "schedule, env, mesh, mesh-kernels, mesh-host")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
-    if not legs or legs - {"megakernel", "ab", "schedule", "mesh", "mesh-kernels", "mesh-host"}:
+    if not legs or legs - {"megakernel", "ab", "schedule", "env", "mesh", "mesh-kernels",
+                           "mesh-host"}:
         ap.error(f"unknown legs {args.legs!r}")
     if not torch.cuda.is_available():
         print("torch_measure: no CUDA device available", file=sys.stderr)
@@ -573,11 +599,14 @@ def main() -> int:
     out = {"card": smi("name,power.limit"), "torch": torch.__version__,
            "cuda": torch.version.cuda}
     if "schedule" in legs:
-        measure_schedule(device, out)
+        measure_schedule(device, out, args.cases)
+    if "env" in legs:
+        measure_env(device, out, args.parent)
     if ("megakernel" in legs or "ab" in legs) and args.parent:
         extra = [tuple(f.split()) for f in args.ab_flags.split(";") if f.strip()]
         diag = [d for d in args.diag.split(",") if d.strip()]
-        measure_ab(device, out, args.parent, extra, diag)
+        diag += [make_diag(name) for name in args.diag_edits.split(",") if name.strip()]
+        measure_ab(device, out, args.parent, extra, diag, args.cases)
     elif "ab" in legs:
         ap.error("the ab leg needs --parent")
     if "megakernel" in legs:
@@ -651,7 +680,7 @@ def adaptive_tiles(layout, device, which):
             torch.as_tensor(gpy, device=device)[rows].reshape(-1).contiguous()), samples
 
 
-def variant_launchers(pkg, device, kernel=None):
+def variant_launchers(pkg, device, kernel=None, cases_re=None):
     """One launch of each timed kernel variant, built with the package
     ``pkg`` (this checkout's or a parent's) or with its ``kernel`` binding,
     keyed by name: the named cases of the K1-K6 rows, then each other
@@ -697,6 +726,8 @@ def variant_launchers(pkg, device, kernel=None):
         "K3 exact_sobol": (env, cfg(sampler="sobol"), None),
         "K3 exact_refraction": (env, cfg(enable_refraction=True), None),
         "K4 env_nee": (env, cfg(nee=True), None),
+        # K4 as the leg runs it: each launch after its rows' build
+        "K4 env_nee_rows": (env, cfg(nee=True), None),
         "K5 split": (env, cfg(env_mode="split"), None),
         "K5 split_aa": (env, cfg(env_mode="split", antialias=True), None),
         "K6 tiles16": (golden, cfg(nee=True, sampler="sobol"), tiles16),
@@ -744,11 +775,17 @@ def variant_launchers(pkg, device, kernel=None):
             named.add(name)
     launchers = {}
     for name, (sc, config, tl) in cases.items():
+        if cases_re and not re.search(cases_re, name):
+            continue
         opts = kmod.kernel_options(config, sc)
         pk = kmod.pack_scene(sc, nee=opts.nee, config=config)
         rows = None
-        if opts.env_nee:
-            rows = kmod.build_env_nee_rows(sc.envmap, SEED, 1, CHUNK, opts.trace_depth)
+        if opts.env_nee and name != "K4 env_nee_rows":
+            # the row kernel's rows with their table where the package has
+            # one, else the torch row build's
+            rows = (kmod.env_nee_rows(pk, SEED, 1, CHUNK, opts.trace_depth)
+                    if hasattr(kmod, "env_nee_rows")
+                    else kmod.build_env_nee_rows(sc.envmap, SEED, 1, CHUNK, opts.trace_depth))
         if tl is None:
             launchers[name] = (lambda pk=pk, opts=opts, rows=rows: kernel(
                 pk, opts, SEED, 1, CHUNK, device, env_rows=rows))
@@ -758,7 +795,7 @@ def variant_launchers(pkg, device, kernel=None):
     return launchers
 
 
-def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=()):
+def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=(), cases_re=None):
     """The kernel variants and the main path, this checkout against the
     parent's package at ``parent_root``, in turns (parent, change, change,
     parent): each variant's 50-sample launch (median of 20) and bit identity
@@ -786,7 +823,7 @@ def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=()):
     out["ab_ptxas"] = {side: [line for line in ptxas_lines_of(build_modules.get(side, build), k)
                               if "registers" in line or "spill" in line]
                        for side, k in kernels.items()}
-    launchers = {side: variant_launchers(pkgs.get(side, pkgs["change"]), device, k)
+    launchers = {side: variant_launchers(pkgs.get(side, pkgs["change"]), device, k, cases_re)
                  for side, k in kernels.items()}
     sides = list(kernels)
     turns = sides + sides[::-1]
@@ -859,6 +896,129 @@ def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=()):
                                renderers["change"].linear_image()))
     out["ab_main_rays_per_s"] = dict(laps, bit_identical=same)
     print(f"ab main path rays/s: {json.dumps(laps)}; images bit-identical {same}", flush=True)
+
+
+# Diagnostic edits of csrc/megakernel.cu (--diag-edits): each is a list of
+# (text, replacement) pairs, every text found exactly once.
+DIAG_EDITS = {
+    # the exact environment's escape lookups (K3, K4) replaced by constants
+    "esc_const": [
+        ("env_lookup(env, dx, dy, dz, le);", "le[0] = 0.5f; le[1] = 0.5f; le[2] = 0.5f;"),
+        ("const float pe = env_pdf_lookup(env, dx, dy, dz);", "const float pe = 0.25f;"),
+    ],
+    # K4's env ray taken as unoccluded, its test skipped
+    "no_env_ray": [
+        ("!occluded_row(sc, hx, hy, hz, row + 8, 1e7f)", "true"),
+    ],
+    # a warp takes its next chunk of 32 pixels only once every lane is done
+    # with the last one: a strip of 32 neighbours at a time, no mixing
+    "strip32": [
+        ("      if (q_next == q_end) {\n",
+         "      if (q_next == q_end) {\n        if (need != kFull) break;\n"),
+    ],
+}
+
+
+def diag_source(text, name):
+    """The megakernel source ``text`` with the edit DIAG_EDITS[name]
+    applied; raises unless each of its texts is found exactly once."""
+    for old, new in DIAG_EDITS[name]:
+        if text.count(old) != 1:
+            raise AssertionError(f"diagnostic edit {name}: {old!r} found {text.count(old)} times")
+        text = text.replace(old, new)
+    return text
+
+
+def make_diag(name):
+    """A copy of this checkout's package under build/diag_<name> with the
+    edit DIAG_EDITS[name] applied to its megakernel source; returns the
+    copy's root, for load_package."""
+    import shutil
+    root = os.path.join(REPO, "build", f"diag_{name}")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(REPO, PACKAGE), os.path.join(root, PACKAGE),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    src = os.path.join(root, mk.SOURCE)
+    with open(src) as f:
+        text = diag_source(f.read(), name)
+    with open(src, "w") as f:
+        f.write(text)
+    return root
+
+
+def measure_env(device, out, parent_root=None):
+    """The environment legs (env_spheres.txt, Renderer(samples_per_launch=200),
+    render(1000)) of this checkout and, with ``parent_root``, of the parent's
+    package, in turns (parent, change, change, parent): rays/s of each lap;
+    then one profiled render(1000) of each: the megakernel's device time,
+    the device time and launches of every other kernel (env NEE's row build,
+    the accumulator's adds), the idle share of the wall. Then env NEE's row
+    build alone, for one step (200 samples, 1,600 rows) and one launch (50
+    samples, 400 rows): device time (CUDA events) and the host's time to
+    enqueue it, medians of 20."""
+    pkgs = {"change": sys.modules[PACKAGE]}
+    if parent_root:
+        pkgs = {"parent": load_package(parent_root, "parent_pkg"), **pkgs}
+    env_path = os.path.join(REPO, "scenes", "env_spheres.txt")
+    legs = {"exact": dict(), "env_nee": dict(nee=True), "split": dict(env_mode="split")}
+    result = {}
+    for leg, kw in legs.items():
+        rs = {side: pkg.Renderer(env_path, pkg.RenderConfig(samples_per_launch=200, **kw),
+                                 device=device) for side, pkg in pkgs.items()}
+        for r in rs.values():
+            r.step(200)
+        laps = {side: [] for side in rs}
+        for side in list(rs) + list(rs)[::-1]:
+            r = rs[side]
+            r.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(1000)
+            laps[side].append(r.scene.camera.pixel_count * 1000 / (time.perf_counter() - t0))
+        for side, r in rs.items():
+            r.reset()
+            rows, wall, idle = profile(lambda: r.render(1000))
+            mega = [x for x in rows if "pt_megakernel" in x[0]]
+            rest = [x for x in rows if "pt_megakernel" not in x[0]]
+            result[f"{leg} {side}"] = dict(
+                rays_per_s=laps[side], profiled_wall_s=wall, idle_share=idle,
+                profiled_rays_per_s=r.scene.camera.pixel_count * 1000 / wall,
+                megakernel_us=sum(x[1] for x in mega), megakernel_launches=sum(x[2] for x in mega),
+                other_us=sum(x[1] for x in rest), other_launches=sum(x[2] for x in rest),
+                other_kernels=sorted(rest, key=lambda x: -x[1])[:12])
+            print(f"env {leg} {side}: " + json.dumps(result[f"{leg} {side}"]), flush=True)
+    scenes = {side: pkg.Scene.from_desc(pkg.load_scene_desc(env_path), device)
+              for side, pkg in pkgs.items()}
+    for side, pkg in pkgs.items():
+        kmod = importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel")
+        sc = scenes[side]
+        cfg = pkg.RenderConfig(nee=True)
+        opts = kmod.kernel_options(cfg, sc)
+        pk = kmod.pack_scene(sc, nee=opts.nee, config=cfg)
+        # the row kernel where the package has one, else the torch row build
+        how = "kernel" if hasattr(kmod, "env_nee_rows") else "torch"
+        for samples in (200, CHUNK):
+            if how == "torch":
+                build_rows = (lambda samples=samples: kmod.build_env_nee_rows(
+                    sc.envmap, SEED, 1, samples, opts.trace_depth))
+            else:
+                build_rows = (lambda samples=samples: kmod.env_nee_rows(
+                    pk, SEED, 1, samples, opts.trace_depth))
+            dev = time_launches(build_rows, REPS)
+            host = []
+            for _ in range(REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                build_rows()
+                host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            rows, _wall, _idle = profile(build_rows)
+            result[f"rows {side} {samples}"] = dict(
+                how=how, rows=samples * opts.trace_depth, device_ms=dev, host_ms=stats(host),
+                kernels=sum(x[2] for x in rows), kernel_us=sum(x[1] for x in rows))
+            print(f"env rows {side} {samples} samples: "
+                  + json.dumps(result[f"rows {side} {samples}"]), flush=True)
+    out["env_legs"] = result
 
 
 def measure_megakernel(device, out):
@@ -985,9 +1145,13 @@ def measure_megakernel(device, out):
         pk = mk.pack_scene(env_scene, nee=opts.nee, config=cfg)
         rows = None
         if opts.env_nee:
-            # the kernel alone on prebuilt rows, and the row build alone
-            rows = mk.build_env_nee_rows(env_scene.envmap, SEED, 1, CHUNK, opts.trace_depth)
+            # the kernel alone on prebuilt rows, and the row build alone: the
+            # row kernel and the torch build it replaced
+            rows = mk.env_nee_rows(pk, SEED, 1, CHUNK, opts.trace_depth)
             out["env_nee_rows_ms"] = time_launches(
+                lambda: mk.env_nee_rows(pk, SEED, 1, CHUNK, opts.trace_depth), REPS
+            )
+            out["env_nee_rows_torch_ms"] = time_launches(
                 lambda: mk.build_env_nee_rows(env_scene.envmap, SEED, 1, CHUNK,
                                               opts.trace_depth), REPS
             )

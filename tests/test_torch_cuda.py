@@ -531,6 +531,108 @@ def test_cuda_env_kernel_matches_plain_version(case, cuda, tmp_path):
     assert_matches_plain_version(got.cpu().numpy(), want.cpu().numpy())
 
 
+def _row_case(kind, device, tmp_path):
+    """(packed scene, kernel options) of env NEE at 64x64 under the meadow
+    map or the one-hot-texel stress map, depth 8."""
+    if kind == "meadow":
+        desc = parse_scene(env_spheres_text(), base_dir=_SCENES)
+    else:
+        path = write_env_map(tmp_path, "sun")
+        desc = parse_scene(env_scene_text(path), base_dir=str(tmp_path))
+    scene = Scene.from_desc(desc, device)
+    config = RenderConfig(nee=True, trace_depth=8)
+    opts = tmk.kernel_options(config, scene)
+    return scene, opts, tmk.pack_scene(scene, config=config)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["meadow", "sun"])
+def test_cuda_env_row_kernel_matches_plain_version(kind, cuda, tmp_path):
+    """The row kernel's [S·D, 8 + 6·G] rows of one 200-sample step against
+    its plain version on the card: the drawn texels (the pdf column) equal,
+    the directions and radiance within 1e-6 relative (both round each
+    operation alone and call the same acosf/atan2f/sinf/cosf; the largest
+    |Δ| of every column is printed, with -s), and the table bit for bit the
+    plain table of the kernel's own directions. One launch, counted."""
+    scene, opts, packed = _row_case(kind, cuda, tmp_path)
+    launches = tmk.KERNEL.row_launches
+    got = tmk.env_nee_rows(packed, 7, 51, 200, opts.trace_depth)
+    assert tmk.KERNEL.row_launches == launches + 1
+    want = tmk.env_nee_rows_reference(packed, 7, 51, 200, opts.trace_depth)
+    assert got.shape == want.shape == (1600, 8 + 6 * packed.num_geoms)
+    assert torch.isfinite(got).all()
+    diff = (got - want).abs().amax(dim=0)
+    print(f"row kernel vs plain, {kind}: max |d| per column {diff[:8].tolist()}, "
+          f"bit-identical {torch.equal(got, want)}")
+    assert torch.equal(got[:, 6:8], want[:, 6:8])
+    torch.testing.assert_close(got[:, :6], want[:, :6], rtol=1e-6, atol=1e-7)
+    table = tmk.env_row_table(packed, got[:, :3]).reshape(got.shape[0], -1)
+    assert torch.equal(got[:, 8:], table)
+    # keyed by absolute iteration: a launch's slice is its own rows
+    assert torch.equal(tmk.env_nee_rows(packed, 7, 101, 50, opts.trace_depth),
+                       got[50 * opts.trace_depth:100 * opts.trace_depth])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["exact", "exact-sobol", "env-nee", "env-nee-sun"])
+def test_cuda_exact_env_kernels_are_bit_for_bit(case, cuda, tmp_path):
+    """K3 and K4 (whose env ray reads the row's per-geom table) against the
+    plain version on the same rows, 50 samples at 64x64: bit for bit."""
+    scene, _opts, packed = _row_case("sun" if case.endswith("sun") else "meadow", cuda,
+                                     tmp_path)
+    config = RenderConfig(nee=case.startswith("env-nee"), trace_depth=8,
+                          sampler="sobol" if case.endswith("sobol") else "independent")
+    opts = tmk.kernel_options(config, scene)
+    packed = tmk.pack_scene(scene, config=config)
+    rows = tmk.env_nee_rows(packed, 7, 3, 50, 8) if opts.env_nee else None
+    got = tmk.KERNEL(packed, opts, 7, 3, 50, cuda, env_rows=rows)
+    pix = torch.arange(scene.camera.pixel_count, device=cuda)
+    want = tmk.render_samples_reference(pix, packed, opts, 7, 3, 50, env_rows=rows)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_env_nee_step_builds_its_rows_in_one_launch(cuda, monkeypatch):
+    """On the card a Renderer step of env NEE builds all its iterations'
+    rows with one launch of the row kernel and no torch threefry."""
+    def no_torch_rows(*args, **kwargs):
+        raise AssertionError("the torch row build ran on the card")
+
+    monkeypatch.setattr(tmk, "build_env_nee_rows", no_torch_rows)
+    r = Renderer(os.path.join(_SCENES, "env_spheres.txt"),
+                 RenderConfig(nee=True, samples_per_launch=120, trace_depth=3), device=cuda)
+    rows, launches = tmk.KERNEL.row_launches, tmk.KERNEL.launches_by_variant.get("env_nee", 0)
+    r.step(120)
+    assert tmk.KERNEL.row_launches == rows + 1
+    assert tmk.KERNEL.launches_by_variant["env_nee"] == launches + 3  # 50 + 50 + 20 samples
+    assert np.isfinite(r.linear_image()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["exact", "env-nee"])
+def test_cuda_counting_build_equals_the_warp_schedule_under_an_environment(case, cuda):
+    """K3 and K4 (64x64 meadow, depth 8, 4 samples): the counting build's
+    counters equal the emulation replaying the warps it recorded; the
+    emulation's spread is a warp's 32 x 1 for a thread per pixel."""
+    scene = Scene.from_desc(parse_scene(env_spheres_text(), base_dir=_SCENES), cuda)
+    config = RenderConfig(nee=case == "env-nee", trace_depth=8)
+    opts = tmk.kernel_options(config, scene)
+    packed = tmk.pack_scene(scene, config=config)
+    counted, owners = tmk.kernel_warp_work(packed, opts, 7, 3, 4, cuda)
+    stats = {}
+    pix = torch.arange(scene.camera.pixel_count, device=cuda)
+    tmk.render_samples_reference(pix, packed, opts, 7, 3, 4, stats=stats)
+    steps, draws = tmk.path_lengths(stats)
+    want = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, **tmk.schedule_args(opts),
+                             owners=owners, vis=tmk.path_visibility(stats), width=64)
+    assert counted == {k: want[k] for k in tmk.WORK}
+    assert (want["visits"] == 1).all() and want["in_order"]
+    assert counted["env_rays"] == int(stats.get("env_shadow", 0))
+    thread = tmk.warp_schedule(steps, draws, "thread", width=64)
+    assert thread["spread"] == (32.0, 1.0)
+    assert want["spread_area"] >= 1.0
+
+
 @pytest.mark.cuda
 def test_cuda_env_tile_dispatch_matches_plain_version(cuda):
     """K6 with the exact environment (K3): 4 tiles with distinct bases."""
@@ -986,6 +1088,32 @@ def test_every_variant_is_named_once():
                 nee=nee, enable_refraction=refr, dof=dof,
                 gather_mode="throughput" if legacy else "light_only"), scene)
             assert tmk.variant_name(opts, tiles) == name
+
+
+def _load_torch_measure():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts", "torch_measure.py")
+    spec = importlib.util.spec_from_file_location("torch_measure", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+TORCH_MEASURE = _load_torch_measure()
+
+
+@pytest.mark.parametrize("name", list(TORCH_MEASURE.DIAG_EDITS))
+def test_diagnostic_edit_applies_to_the_megakernel_source(name):
+    """Each of torch_measure.py's diagnostic edits (--diag-edits) finds each
+    of its texts exactly once in today's csrc/megakernel.cu, and changes
+    the source."""
+    with open(os.path.join(os.path.dirname(__file__), "..", tmk.SOURCE)) as f:
+        text = f.read()
+    edited = TORCH_MEASURE.diag_source(text, name)
+    assert edited != text
+    for _old, new in TORCH_MEASURE.DIAG_EDITS[name]:
+        assert new in edited
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ next pixel of the queue when their pixel is done. On the card the kernel's
 counting build must give the same counts (tests/test_torch_cuda.py). Here,
 on the small Cornell box at depth 3 and 2 spp, both schedules must serve
 every pixel exactly once, from one lane, its samples in ascending order, and
-the regenerating schedule must never take more warp iterations.
+the regenerating schedule must never take more warp iterations; given the
+frame's width, the emulation's ``spread`` is the box of the pixels a warp's
+lanes hold (a thread per pixel: a row of 32).
 """
 
 import os
@@ -47,10 +49,10 @@ def paths():
     return out
 
 
-def _run(paths, name, schedule, warps=8, owners=None):
+def _run(paths, name, schedule, warps=8, owners=None, width=None):
     opts, steps, draws = paths[name]
     return tmk.warp_schedule(steps, draws, schedule, **tmk.schedule_args(opts),
-                             warps=warps, owners=owners)
+                             warps=warps, owners=owners, width=width)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -165,3 +167,39 @@ def test_schedule_rejects_bad_arguments(paths):
         tmk.warp_schedule(steps, draws, "regen")
     with pytest.raises(ValueError):
         tmk.warp_schedule(steps, draws, "regen", owners=np.zeros(3, np.int64))
+
+
+def test_spread_of_a_thread_per_pixel_is_a_row_of_32(paths):
+    """A thread per pixel holds 32 neighbours of one row (64 is a multiple
+    of 32): its spread is 32 x 1 in every warp iteration; without the
+    frame's width there is none."""
+    got = _run(paths, "hoisted-sobol", "thread", width=64)
+    assert got["spread"] == (32.0, 1.0) and got["spread_area"] == 32.0
+    assert _run(paths, "hoisted-sobol", "thread")["spread"] is None
+    assert _run(paths, "hoisted-sobol", "regen")["spread_area"] is None
+
+
+def test_spread_of_a_warp_across_rows():
+    """On a frame 40 pixels wide a thread per pixel's second warp holds the
+    end of row 0 and the start of row 1: a box of 40 x 2; each warp's box
+    is weighted by its iterations."""
+    steps = np.ones((1, 48), np.int64)
+    steps[0, 32:] = 3  # the second warp takes three iterations
+    got = tmk.warp_schedule(steps, np.zeros_like(steps), "thread", width=40)
+    assert got["warp_iters"] == 4
+    assert got["spread"] == pytest.approx(((32 + 3 * 40) / 4, (1 + 3 * 2) / 4))
+    assert got["spread_area"] == pytest.approx((32 + 3 * 80) / 4)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_regenerating_warps_spread_over_the_frame(paths, name):
+    """Path regeneration hands a warp's free lanes the next pixels of the
+    queue: the box of the pixels its lanes hold stays inside the frame and
+    holds at least one pixel, and with 8 lockstep warps over a 64 x 64
+    frame it spans more than one row."""
+    got = _run(paths, name, "regen", width=64)
+    cols, rows = got["spread"]
+    assert 1.0 <= cols <= 64.0 and 1.0 <= rows <= 64.0
+    assert rows > 1.0 and got["spread_area"] >= cols
+    with pytest.raises(ValueError):
+        _run(paths, name, "regen", width=0)
