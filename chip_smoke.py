@@ -108,16 +108,43 @@ Phases, in order; any failure raises and exits non-zero:
    depth-8 and depth-9 means, 1% slack each side;
 19. K6's loss over the adaptive legs' launches (launches x (time - bound),
    the warm-up and the rounds each at its own size), the row kernel's line
-   (part of K4's row), then one JSON line
-   describing each ported kernel (K6's times and bound are the round's;
-   K7's and K8's are the sums over one sample's launches, whose count
-   'launches_per_sample' gives), the card, the result line.
+   (part of K4's row);
+20. the fast pipeline (eager torch, no kernel of its own) on
+   scenes/env_spheres.txt (800x800, depth 8, meadow map) in the three
+   configurations 'auto' routes to it: exact under throughput gathering,
+   an emissive sphere added under nee (the combined area + env NEE), and
+   the map resampled to 512x1024 (past the megakernel's texel budget),
+   each a warm-up sample then render(64): rays/s, ms a sample, torch
+   kernels a sample and the device's idle share (one more sample under
+   torch.profiler); then the card against the CPU, the same code at 1 spp
+   on the second configuration at 200x200 (share of pixels with
+   max-channel |d| > 1e-3 <= 0.5%, channel means within 0.5%);
+21. golden through pipeline='fast' and pipeline='reference', 1000 spp
+   each: PSNR (floor 34.0 dB, the golden leg's) and rays/s;
+22. the registry's five models (and the wavefront model's two other
+   compactions) on scenes/cornell.txt (800x800, depth 8), each a warm-up
+   sample then render(32): rays/s, kernels a sample, idle share; bvh
+   against naive (share of pixels > 1e-3 below 2%, means within 2%,
+   tests/test_bvh.py's bound), each compaction and wavefront against naive
+   (rtol = atol = 1e-5, tests/test_models.py's);
+23. the reference pipeline on mesh1080p.txt with the meadow map, which
+   'auto' routes to 'reference' with the BVH (triangles through K7), without
+   and with nee, each a warm-up sample then render(16): rays/s, ms a
+   sample, K7 launches a sample (at least one), idle share; then at 480x270
+   and 1 spp, triangles through K7 against the threaded BVH walk on the
+   card (tri_method='while'), tests/test_bvh.py's bound; then one JSON
+   line describing each ported kernel (K6's times and bound are the
+   round's; K7's and K8's are the sums over one mesh pipeline sample's
+   launches, whose count 'launches_per_sample' gives; K7's
+   'reference_pipeline' holds phase 23's launches, their count a sample and
+   K7's device ms a sample there, per leg), the card, the result line.
 
 Every leg sets the launch counts to 0 just before it and reads them just
 after; a leg whose kernel variant was never launched fails. Phases 1-15 are
-the megakernel's (kernels K1-K6), 16-18 the mesh pipeline's (K7, K8). It needs a CUDA
-device and the repository's files: without either it fails before printing
-any result.
+the megakernel's (kernels K1-K6), 16-18 the mesh pipeline's (K7, K8), 20-23
+the eager pipelines' (K1 through the megakernel model, K7 through the
+reference pipeline's BVH). It needs a CUDA device and the repository's
+files: without either it fails before printing any result.
 """
 
 import dataclasses
@@ -238,6 +265,43 @@ MESH_SORT_ATOL = 1e-7
 # 32 samples on mesh1080p: heavy-tailed BRDF-sampled hits of the light; the
 # NEE means stay within 1e-5)
 MESH_SPP = 64
+
+# the eager pipelines (phases 20-23). Card against CPU, the same port code:
+# the ROADMAP's oracle bound (torch's CPU and CUDA math round differently);
+# the BVH against brute force (tests/test_bvh.py's statistical bound: ties
+# on overlapping surfaces reroute whole paths); wavefront compaction
+# (tests/test_models.py's tolerance)
+ORACLE_SHARE = 0.005
+ORACLE_MEAN_RTOL = 0.005
+BVH_SHARE = 0.02
+BVH_MEAN_RTOL = 0.02
+WAVEFRONT_TOL = 1e-5
+FAST_SPP = 64
+FAST_GATE_RES = 200
+GOLDEN_EAGER_SPP = 1000
+MODEL_SPP = 32
+MESH_ENV_SPP = 16
+# phase 20 (b): env_spheres with one emissive sphere
+EMITTER_MATERIAL = """// emitter
+MATERIAL 4
+RGB         1 .9 .8
+SPECEX      0
+SPECRGB     0 0 0
+REFL        0
+REFR        0
+REFRIOR     0
+EMITTANCE   5
+
+"""
+EMITTER_OBJECT = """
+// emissive sphere
+OBJECT 4
+sphere
+material 4
+TRANS       1.5 3.5 2
+ROTAT       0 0 0
+SCALE       .8 .8 .8
+"""
 
 # the adaptive legs' dispatches at 800x800 (AdaptiveRenderer.render(256):
 # 325 tiles of 32x64, a 64-spp warm-up, then 23 rounds of 32 spp on a
@@ -694,6 +758,249 @@ def _mesh_phases(device, seed, scene_path):
             "k8_launches": legs["mesh NEE"]["launches"]["tmin"]}
 
 
+def _profile_kernels(fn, part=None):
+    """One run of ``fn`` under torch.profiler: (the device's idle share of
+    the wall, the device kernels launched, the device ms of the kernels
+    whose name contains ``part``, 0 without one)."""
+    import torch
+
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    busy_us = sum(e.device_time_total for e in rows)
+    part_us = sum(e.device_time_total for e in rows if part is not None and part in e.key)
+    return 1.0 - busy_us * 1e-6 / wall, sum(e.count for e in rows), part_us * 1e-3
+
+
+def _agreement(got, want):
+    """(share of pixels whose max-channel |d| exceeds 1e-3, the largest
+    relative gap of the channel means) of two [..., 3] images."""
+    import numpy as np
+
+    got = np.asarray(got, np.float64).reshape(-1, 3)
+    want = np.asarray(want, np.float64).reshape(-1, 3)
+    share = float((np.abs(got - want).max(axis=1) > 1e-3).mean())
+    m_got, m_want = got.mean(axis=0), want.mean(axis=0)
+    return share, float((np.abs(m_got - m_want) / np.abs(m_want)).max())
+
+
+def _eager_leg(what, r, spp, kernel=None, part=None):
+    """A warm-up sample, a reset, then ``r.render(spp)`` timed, then one
+    more sample under torch.profiler. Prints and returns the leg's readings:
+    rays/s, ms a sample, torch kernels a sample, idle share, the launches of
+    ``kernel`` (a launch-counting wrapper) in the timed run, and the device
+    ms a sample of the kernels named ``part`` (``part_ms``)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    r.step(1)
+    warm = time.perf_counter() - t0
+    r.reset()
+    if kernel is not None:
+        kernel.reset_counts()
+    t0 = time.perf_counter()
+    r.render(spp)
+    wall = time.perf_counter() - t0
+    launches = None
+    if kernel is not None:
+        launches = (dict(kernel.launches_by_mode) if hasattr(kernel, "launches_by_mode")
+                    else kernel.launches)
+    img = r.linear_image()
+    accum = r.state.accum.clone()
+    idle, kernels, part_ms = _profile_kernels(lambda: r.step(1), part)
+    pixels = r.scene.camera.pixel_count
+    out = dict(rays_per_s=pixels * spp / wall, ms_per_sample=wall / spp * 1e3,
+               kernels_per_sample=kernels, idle_share=idle, launches=launches, img=img,
+               accum=accum, pipeline=r.pipeline, part_ms=part_ms)
+    print(f"  {what} ({r.pipeline}): warm-up sample {warm:.3f} s; render({spp}) "
+          f"{out['rays_per_s']:.6e} rays/s, {out['ms_per_sample']:.3f} ms/sample; "
+          f"{kernels} torch kernels a sample, idle share {idle:.4f}"
+          + ("" if kernel is None else f"; launches {launches}") + f"; mean {img.mean():.6f}")
+    if not (np.isfinite(img).all() and img.mean() > 0.0):
+        raise AssertionError(f"{what}: the image is not finite or black")
+    return out
+
+
+FAST_NEE_LEG = "(b) + emissive sphere, nee"
+
+
+def fast_legs_scenes(scene_path):
+    """Phase 20's configurations, each a (SceneDesc, RenderConfig) that
+    'auto' routes to the fast pipeline: env_spheres.txt under throughput
+    gathering, with an emissive sphere added under nee (the combined NEE),
+    and with its map resampled (each texel repeated 4 x 4) past the
+    megakernel's texel budget."""
+    import numpy as np
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import RenderConfig, parse_scene
+
+    scenes_dir = os.path.dirname(scene_path("env_spheres.txt"))
+    env_text = open(scene_path("env_spheres.txt")).read()
+    lit_text = env_text.replace("\nENVIRONMENT\n", "\n" + EMITTER_MATERIAL + "ENVIRONMENT\n",
+                                1) + EMITTER_OBJECT
+    desc = parse_scene(env_text, base_dir=scenes_dir)
+    big = dataclasses.replace(desc, env_image=np.repeat(np.repeat(desc.env_image, 4, 0), 4, 1))
+    return {
+        "(a) exact + throughput": (desc, RenderConfig(gather_mode="throughput")),
+        FAST_NEE_LEG: (parse_scene(lit_text, base_dir=scenes_dir), RenderConfig(nee=True)),
+        f"(c) map resampled to {big.env_image.shape[0]}x{big.env_image.shape[1]}, exact":
+            (big, RenderConfig()),
+    }
+
+
+def mesh_env_text(scene_path):
+    """Phase 23's scene: mesh1080p.txt with the meadow map's ENVIRONMENT
+    block."""
+    return open(scene_path("mesh1080p.txt")).read().replace(
+        "\nCAMERA\n", "\nENVIRONMENT\nFILE meadow.hdr\nSTRENGTH 1\n\nCAMERA\n", 1)
+
+
+def _pipeline_phases(device, seed, scene_path, ref_img, smi):
+    """Phases 20-23: the fast and reference pipelines, the registry's
+    models, and a mesh with a map on the reference pipeline's BVH (K7).
+    Returns, for each of phase 23's legs, K7's launches in its timed run,
+    their count a sample and K7's device ms a sample."""
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
+        RenderConfig,
+        Renderer,
+        Scene,
+        parse_scene,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.models import (
+        available_models,
+        make_renderer,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.bvh import BVHIntersector
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as mesh
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import trace_sample
+
+    scenes_dir = os.path.dirname(scene_path("cornell.txt"))
+    print(f"[20] fast pipeline legs: env_spheres.txt 800x800, depth 8, meadow map, "
+          f"render({FAST_SPP}) ({smi})")
+    legs = fast_legs_scenes(scene_path)
+    fast_legs = {}
+    for what, (d, cfg) in legs.items():
+        r = Renderer(d, cfg, seed=seed, device=device)
+        if r.pipeline != "fast":
+            raise AssertionError(f"{what} routed to {r.pipeline!r}, not 'fast'")
+        fast_legs[what] = _eager_leg(what, r, FAST_SPP)
+    lit = legs[FAST_NEE_LEG][0]
+    small = dataclasses.replace(lit, camera=dataclasses.replace(
+        lit.camera, resolution=(FAST_GATE_RES, FAST_GATE_RES)))
+    imgs = []
+    for dev in (device, "cpu"):
+        r = Renderer(small, RenderConfig(nee=True), seed=seed, device=dev)
+        r.render(1)
+        imgs.append(r.linear_image())
+    share, mean_rel = _agreement(*imgs)
+    print(f"  card vs CPU, (b) at {FAST_GATE_RES}x{FAST_GATE_RES}, 1 spp: share of pixels > 1e-3 "
+          f"{share:.4e} (bound {ORACLE_SHARE}), channel means within {mean_rel:.4e} "
+          f"(bound {ORACLE_MEAN_RTOL})")
+    if share > ORACLE_SHARE or mean_rel > ORACLE_MEAN_RTOL:
+        raise AssertionError("the fast pipeline on the card disagrees with the CPU")
+
+    print(f"[21] golden through the eager pipelines: cornell_golden.txt, antialias, sobol, "
+          f"{GOLDEN_EAGER_SPP} spp")
+    golden = {}
+    for pipeline in ("fast", "reference"):
+        r = Renderer(scene_path("cornell_golden.txt"),
+                     RenderConfig(antialias=True, sampler="sobol", pipeline=pipeline,
+                                  samples_per_launch=50), seed=seed, device=device)
+        t0 = time.perf_counter()
+        r.render(GOLDEN_EAGER_SPP)
+        wall = time.perf_counter() - t0
+        psnr = _golden_psnr(r.linear_image(), ref_img)
+        rays = r.scene.camera.pixel_count * GOLDEN_EAGER_SPP / wall
+        golden[pipeline] = dict(psnr=psnr, rays_per_s=rays)
+        print(f"  {pipeline}: PSNR {psnr:.4f} dB (floor {PSNR_FLOOR_1000}), {rays:.6e} rays/s, "
+              f"{wall / GOLDEN_EAGER_SPP * 1e3:.3f} ms/sample")
+        if psnr < PSNR_FLOOR_1000:
+            raise AssertionError(f"golden PSNR through pipeline={pipeline!r} below its floor")
+
+    print(f"[22] the registry's models: cornell.txt 800x800, depth 8, render({MODEL_SPP})")
+    models = {}
+    runs = [(m, "none") for m in available_models()]
+    runs += [("wavefront", c) for c in ("sort_alive", "sort_material")]
+    for model, compaction in runs:
+        r = make_renderer(model, scene_path("cornell.txt"), seed=seed, compaction=compaction,
+                          device=device)
+        name = model if compaction == "none" else f"{model}[{compaction}]"
+        models[name] = _eager_leg(name, r, MODEL_SPP,
+                                  kernel=mk.KERNEL if model == "megakernel" else None)
+    if not models["megakernel"]["launches"]:
+        raise AssertionError("the megakernel model never launched the megakernel")
+    share, mean_rel = _agreement(models["bvh"]["accum"].cpu(), models["naive"]["accum"].cpu())
+    print(f"  bvh vs naive: share of pixels > 1e-3 {share:.4e} (bound {BVH_SHARE}), channel "
+          f"means within {mean_rel:.4e} (bound {BVH_MEAN_RTOL})")
+    if share >= BVH_SHARE or mean_rel >= BVH_MEAN_RTOL:
+        raise AssertionError("the bvh model disagrees with the naive model")
+    for name, other in (("wavefront[sort_alive]", "wavefront"),
+                        ("wavefront[sort_material]", "wavefront"), ("wavefront", "naive")):
+        gap = float((models[name]["accum"] - models[other]["accum"]).abs().max())
+        print(f"  {name} vs {other}: max |d| {gap:.3e} (rtol = atol = {WAVEFRONT_TOL})")
+        torch.testing.assert_close(models[name]["accum"], models[other]["accum"],
+                                   rtol=WAVEFRONT_TOL, atol=WAVEFRONT_TOL)
+
+    print(f"[23] mesh + environment on the reference pipeline: mesh1080p.txt with the meadow "
+          f"map, render({MESH_ENV_SPP})")
+    mesh_text = mesh_env_text(scene_path)
+    mesh_desc = parse_scene(mesh_text, base_dir=scenes_dir)
+    k7 = {}
+    mesh_env = {}
+    for what, cfg in (("mesh + map", RenderConfig()), ("mesh + map, nee", RenderConfig(nee=True))):
+        r = Renderer(mesh_desc, cfg, seed=seed, device=device)
+        if (r.pipeline, cfg.resolve_intersector(r.scene)) != ("reference", "bvh"):
+            raise AssertionError(f"{what} routed to {r.pipeline!r}, not 'reference' + 'bvh'")
+        leg = _eager_leg(what, r, MESH_ENV_SPP, kernel=mesh.KERNEL, part="pt_mesh_intersect")
+        full = leg["launches"].get("full", 0)
+        print(f"  {what}: K7 launches a sample {full / MESH_ENV_SPP:.2f}, K7 device time a "
+              f"sample {leg['part_ms']:.4f} ms")
+        if not full:
+            raise AssertionError(f"{what}: the reference pipeline never launched K7")
+        k7[what] = dict(launches=full, launches_per_sample=full / MESH_ENV_SPP,
+                        ms_per_sample=leg["part_ms"])
+        mesh_env[what] = leg
+    gate_desc = parse_scene(mesh_text.replace("RES         1920 1080", "RES         480 270"),
+                            base_dir=scenes_dir)
+    gate_scene = Scene.from_desc(gate_desc, device)
+    cfg = RenderConfig()
+    out = {}
+    for method in ("cluster", "while"):
+        isect = BVHIntersector(gate_scene, leaf_size=cfg.bvh_leaf_size, tri_method=method)
+        mesh.KERNEL.reset_counts()
+        t0 = time.perf_counter()
+        out[method] = trace_sample(gate_scene, cfg, seed, 1, isect).cpu()
+        torch.cuda.synchronize()
+        print(f"  480x270, 1 spp, triangles through {method}: {time.perf_counter() - t0:.3f} s, "
+              f"K7 launches {mesh.KERNEL.launches}")
+        if (method == "cluster") != (mesh.KERNEL.launches > 0):
+            raise AssertionError(f"tri_method={method!r} launched K7 {mesh.KERNEL.launches} times")
+    share, mean_rel = _agreement(out["cluster"], out["while"])
+    print(f"  K7 vs _traverse on the card: share of pixels > 1e-3 {share:.4e} (bound {BVH_SHARE}), "
+          f"channel means within {mean_rel:.4e} (bound {BVH_MEAN_RTOL})")
+    if share >= BVH_SHARE or mean_rel >= BVH_MEAN_RTOL:
+        raise AssertionError("the reference pipeline's K7 disagrees with its _traverse")
+    drop = ("img", "accum")
+    readings = dict(
+        fast={k: {f: v for f, v in leg.items() if f not in drop} for k, leg in fast_legs.items()},
+        golden=golden,
+        models={k: {f: v for f, v in leg.items() if f not in drop} for k, leg in models.items()},
+        mesh_env={k: {f: v for f, v in leg.items() if f not in drop}
+                  for k, leg in mesh_env.items()})
+    print("eager pipelines: " + json.dumps(readings))
+    return k7
+
+
 def _environment_phases(device, seed, chunk, pix, scene_path):
     """Phases 10-14: the environment variants (K3-K5) on env_spheres.txt.
     Returns their errors, timings, launch counts and gate readings."""
@@ -918,18 +1225,7 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
 def _idle_share(fn):
     """The device's idle share of the wall of one run of ``fn`` under
     torch.profiler (1 - the device time of its kernels over the wall)."""
-    import torch
-
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(e.device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return 1.0 - busy_us * 1e-6 / wall
+    return _profile_kernels(fn)[0]
 
 
 def _row_kernel_check(pk, opts, seed, chunk):
@@ -1395,12 +1691,13 @@ def main() -> int:
     def mk_entry(name, line, launches, err, timing):
         return entry(name, f"{src}:{line}", launches, err, timing)
 
-    def mesh_entry(name, kernel, launches):
-        # ms, plain_ms and bound_ms: the sum over one sample's launches
+    def mesh_entry(name, kernel, launches, **extra):
+        # ms, plain_ms and bound_ms: the sum over one mesh pipeline sample's
+        # launches
         ps = meshes["per_sample"][kernel]
         return dict(entry(name, src.replace("megakernel.py", "mesh_kernel.py:541"), launches,
                           ps["err"], (ps["ms"], ps["plain_ms"], ps["bound"]), source=mesh.SOURCE),
-                    launches_per_sample=ps["launches"])
+                    launches_per_sample=ps["launches"], **extra)
 
     k1b_launches = sum(leg_launches["glass+dof"].values()) + sum(
         leg_launches["reference parity"].values())
@@ -1423,6 +1720,10 @@ def main() -> int:
         torch_row_build_ms_a_step=rk["torch_ms"], max_abs_err_by_column=rk["max_abs"],
         bit_identical=rk["bit_identical"],
         env_legs={k: dict(rays_per_s=v[0], idle_share=v[1]) for k, v in env["legs"].items()})))
+
+    k7_reference = _pipeline_phases(device, seed, scene_path, ref_img, smi)
+    print(f"  peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
+          f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         mk_entry("K1 megakernel", 2393, main_launches, max_abs_err, (ms, plain_ms, k1_bound)),
         mk_entry("K1b megakernel[refraction,dof,early_exit,throughput]", 1510, k1b_launches,
@@ -1439,7 +1740,9 @@ def main() -> int:
                  env["times"]["split composite"]),
         mk_entry("K6 megakernel[tiles]", 2173, sum(ada_launches.values()) + env["adaptive_launches"],
                  max(errs["g"], env["errs"]["exact tiles"]), k6["round"]),
-        mesh_entry("K7 mesh_intersect[full]", "K7", meshes["k7_launches"]),
+        # phase 23's uncompacted full-frame launches keep counts of their own
+        mesh_entry("K7 mesh_intersect[full]", "K7", meshes["k7_launches"],
+                   reference_pipeline=k7_reference),
         mesh_entry("K8 mesh_intersect[tmin]", "K8", meshes["k8_launches"]),
     ]}))
     print(smi)

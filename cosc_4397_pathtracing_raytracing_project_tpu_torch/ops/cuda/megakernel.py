@@ -500,9 +500,9 @@ class KernelOptions:
 def supports(scene) -> bool:
     """Whether the megakernel renders ``scene`` (the JAX ``supports``):
     analytic scenes of 1 to ``MAX_GEOMS`` primitives (triangles take the
-    mesh pipeline, other counts the reference pipeline, ROADMAP Queue 1
-    item 9), with environment maps up to ``MAX_ENV_EXACT_TEXELS`` texels.
-    Larger maps belong to the fast pipeline (item 10)."""
+    mesh pipeline, other counts the reference pipeline), with environment
+    maps up to ``MAX_ENV_EXACT_TEXELS`` texels. Larger maps take the fast
+    pipeline in ``'exact'`` mode."""
     if scene.num_triangles or not 0 < scene.cubes.count + scene.spheres.count <= MAX_GEOMS:
         return False
     if scene.envmap is not None:
@@ -523,7 +523,7 @@ def wants_env_nee(scene, config, packed=None) -> bool:
     (the JAX ``_wants_env_nee``): ``env_mode='exact'`` + ``nee`` on a scene
     with an environment map and no analytic emitter. Raises ``ValueError``
     for an environment plus analytic emitters under ``nee`` (their combined
-    NEE runs on the fast pipeline, ROADMAP Queue 1 item 10). With the
+    NEE runs on the fast pipeline, ``ops/fast.trace_sample_fast``). With the
     scene's ``packed`` tables, reads nothing from the device."""
     if not config.nee or scene.envmap is None or config.env_mode == "split":
         return False

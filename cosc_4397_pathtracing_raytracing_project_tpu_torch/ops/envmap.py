@@ -1,9 +1,8 @@
 """Image-based environment lighting (equirectangular HDR) with importance
 sampling.
 
-Port of the JAX package's ``ops/envmap.py`` (everything but ``EnvNEEInputs``,
-which belongs to the reference pipeline): the map and its Walker/Vose alias
-table, the direction ↔ (u, v) convention, bilinear radiance and per-texel
+Port of the JAX package's ``ops/envmap.py``: the map and its Walker/Vose
+alias table, the direction ↔ (u, v) convention, bilinear radiance and per-texel
 pdf lookups, the alias-table sampler, and the sun/sky split of the
 megakernel's ``env_mode='split'`` (delta suns + an SH-9 residual sky).
 
@@ -24,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Callable
 
 import numpy as np
 import torch
@@ -120,6 +120,17 @@ def _build_alias(p: np.ndarray):
             large_top += 1
     # leftovers are 1.0 up to rounding
     return prob, alias
+
+
+@dataclasses.dataclass
+class EnvNEEInputs:
+    """Per-bounce inputs for environment importance sampling in
+    ``ops.shade.shade_step`` (the infinite-light twin of
+    ``lights.NEEInputs``)."""
+
+    env: EnvMap
+    shadow_isect: Callable  # (origins, dirs) -> Hit; visibility = .miss
+    uniforms: torch.Tensor  # [N, 2] (rng.env_uniforms)
 
 
 def dir_to_uv(d: torch.Tensor):

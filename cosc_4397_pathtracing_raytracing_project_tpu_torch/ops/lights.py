@@ -7,14 +7,15 @@ surface, with the world-space area density from the local area scale of the
 affine transform, ``s(x) = |det A| · |A⁻ᵀ·n̂_obj|``. The mesh pipeline
 (``ops/fast.trace_sample_mesh``) samples these lights at every vertex and
 weighs its emissive hits against them with the balance heuristic; emissive
-triangles stay BRDF-sampled. ``NEEInputs`` (the reference pipeline's
-wiring) belongs to ROADMAP Queue 1 item 9.
+triangles stay BRDF-sampled. :class:`NEEInputs` carries a bounce's light
+sampler, shadow intersector and uniforms into the reference pipeline's
+``shade_step``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -158,3 +159,12 @@ def make_light_sampler(scene) -> Optional[LightSampler]:
         geom_index=torch.tensor(gids, dtype=torch.int32, device=dev),
         num_lights=len(rows),
     )
+
+
+@dataclasses.dataclass
+class NEEInputs:
+    """Per-bounce NEE wiring passed into ``ops.shade.shade_step``."""
+
+    sampler: LightSampler
+    shadow_isect: Callable  # (origins [N,3], dirs [N,3]) -> Hit
+    uniforms: torch.Tensor  # [N, 3]: light pick + 2 surface coords

@@ -29,9 +29,14 @@ lane-layout wrappers (:func:`ld_pixel_jitter`, :func:`ld_lens_uniforms`,
 :func:`ld_bounce_uniforms`, :func:`ld_nee_bounce_uniforms`). Where the JAX
 functions take the render key ``PRNGKey(seed)``, these take ``seed``: the
 hash streams read only the key's last word, ``seed mod 2^32``, and the
-threefry streams rebuild the key with :func:`prng_key`. The lane-indexed
-threefry streams of the other pipelines (``bounce_uniforms``,
-``nee_uniforms``, ``env_uniforms``) belong to ROADMAP Queue 1 item 9.
+threefry streams rebuild the key with :func:`prng_key`.
+
+The fast and reference pipelines never reorder their rays, so their
+per-bounce streams are indexed by lane: :func:`bounce_uniforms` (``[n,
+NUM_LANES]``), :func:`bounce_lane_uniforms` (the ``[NUM_LANES, n]`` draw the
+fast pipeline makes from the same key: another layout of other bits),
+:func:`nee_uniforms` and :func:`env_uniforms`, each a ``jax.random.uniform``
+of a key folded from ``(seed, iteration, depth)``.
 """
 
 from __future__ import annotations
@@ -220,28 +225,33 @@ def fold_in(key, data) -> tuple:
     return threefry2x32(key, torch.zeros((), dtype=torch.int64), u32(data))
 
 
-def random_bits(key, shape) -> torch.Tensor:
+def random_bits(key, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32 in int64) under
     ``jax_threefry_partitionable=True``: element ``i`` of the row-major
     flattened shape hashes the 64-bit counter ``i`` split into (high, low)
     words, and its bits are the XOR of the two output words. The key words
-    may carry leading batch dimensions (a batch of folded keys)."""
+    may carry leading batch dimensions (a batch of folded keys). The bits
+    land on ``device`` (by default the key's): a single key may stay on
+    the host, where the device's kernels read its words as scalars, with
+    no copy and no wait for the device."""
     k0, k1 = u32(key[0]), u32(key[1])
     n = int(np.prod(shape))
     if n >= 1 << 32:
         raise ValueError(f"random_bits: {n} elements exceed a 32-bit counter")
-    dev = k0.device
+    dev = k0.device if device is None else torch.device(device)
     lo = torch.arange(n, dtype=torch.int64, device=dev).reshape(shape)
     batch = k0.shape
-    lead = (...,) + (None,) * len(shape)
-    y0, y1 = threefry2x32((k0[lead], k1[lead]), torch.zeros((), dtype=torch.int64), lo)
+    if batch:
+        lead = (...,) + (None,) * len(shape)
+        k0, k1 = k0[lead], k1[lead]
+    y0, y1 = threefry2x32((k0, k1), torch.zeros((), dtype=torch.int64), lo)
     return (y0 ^ y1).expand(batch + tuple(shape))
 
 
-def uniform(key, shape) -> torch.Tensor:
+def uniform(key, shape, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)`` on [0, 1): the top 23
     bits of each word as the mantissa of a float in [1, 2), minus 1."""
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
+    bits = (random_bits(key, shape, device) >> 9) | 0x3F800000
     return (bits.to(torch.int32).view(torch.float32) - 1.0).clamp_min(0.0)
 
 
@@ -301,9 +311,43 @@ def hash_nee_uniforms(seed: int, iteration, depth, pixel_ids) -> torch.Tensor:
     )
 
 
+def bounce_key(seed: int, iteration, depth) -> tuple:
+    """Key of one (sample iteration, bounce depth) pair, the JAX
+    ``bounce_key``: ``fold_in(fold_in(PRNGKey(seed), iteration), depth)``,
+    both folded as int32 words."""
+    return fold_in(fold_in(prng_key(seed), iteration), depth)
+
+
+def bounce_uniforms(seed: int, iteration, depth, n: int, device="cpu") -> torch.Tensor:
+    """``[n, NUM_LANES]`` f32 uniforms of one bounce, the JAX
+    ``bounce_uniforms`` (the reference pipeline's layout)."""
+    return uniform(bounce_key(seed, iteration, depth), (n, NUM_LANES), device)
+
+
+def bounce_lane_uniforms(seed: int, iteration, depth, n: int, device="cpu") -> torch.Tensor:
+    """``[NUM_LANES, n]`` f32 uniforms of one bounce from the same key as
+    :func:`bounce_uniforms`: the draw ``trace_sample_fast`` makes,
+    ``uniform(bounce_key(...), (NUM_LANES, n))``. Element ``(l, i)`` hashes
+    the counter ``l·n + i``, so it is not the transpose of
+    :func:`bounce_uniforms`."""
+    return uniform(bounce_key(seed, iteration, depth), (NUM_LANES, n), device)
+
+
+def nee_uniforms(seed: int, iteration, depth, n: int, device="cpu") -> torch.Tensor:
+    """``[n, 3]`` uniforms for direct light sampling (light pick, two
+    surface coordinates), the JAX ``nee_uniforms``: the bounce key folded
+    with the tag 0x11EE."""
+    return uniform(fold_in(bounce_key(seed, iteration, depth), 0x11EE), (n, 3), device)
+
+
+def env_uniforms(seed: int, iteration, depth, n: int, device="cpu") -> torch.Tensor:
+    """``[n, 2]`` uniforms for environment-map importance sampling, the JAX
+    ``env_uniforms``: the bounce key folded with the tag 0xE271."""
+    return uniform(fold_in(bounce_key(seed, iteration, depth), 0xE271), (n, 2), device)
+
+
 def _frame_uniforms(seed: int, iteration, tag: int, n: int, device) -> torch.Tensor:
-    key = fold_in(fold_in(prng_key(seed), iteration), tag)
-    return uniform(tuple(k.to(device) for k in key), (n, 2))
+    return uniform(fold_in(fold_in(prng_key(seed), iteration), tag), (n, 2), device)
 
 
 def pixel_jitter(seed: int, iteration, n: int, device="cpu") -> torch.Tensor:

@@ -1,31 +1,42 @@
 """Render configuration, the step functions and the host-side Renderer.
 
-Port of the JAX package's ``render/engine.py`` for analytic and
-triangle-mesh scenes. An analytic scene renders through
-:func:`make_pallas_step`, which launches the megakernel
-(``ops/cuda/megakernel.py``) once for every ``PALLAS_CHUNK`` samples and
-adds each ``[N, 3]`` radiance sum into the accumulator; the pipeline keeps
-its JAX name, ``"pallas"``, and carries every estimator option of the
-megakernel (NEE, refraction, depth of field, early exit, throughput
-gathering, and the environment map in ``'exact'`` and ``'split'`` mode). A
-scene with triangles renders through :func:`make_mesh_step`, the
-``"fast_mesh"`` pipeline: one ``ops/fast.trace_sample_mesh`` wavefront per
-sample over the cluster-culled triangle kernels (``ops/cuda/mesh_kernel.py``).
-Options the port does not carry yet raise ``NotImplementedError`` naming
-their ROADMAP item.
+Port of the JAX package's ``render/engine.py``. ``resolve_pipeline`` picks
+what the JAX package picks on its accelerator:
+
+- ``"pallas"``: :func:`make_pallas_step` launches the megakernel
+  (``ops/cuda/megakernel.py``) once for every ``PALLAS_CHUNK`` samples and
+  adds each ``[N, 3]`` radiance sum into the accumulator; it carries every
+  estimator option of the megakernel (NEE, refraction, depth of field,
+  early exit, throughput gathering, and the environment map in
+  ``'exact'`` and ``'split'`` mode);
+- ``"fast_mesh"``: :func:`make_mesh_step`, one ``ops/fast.trace_sample_mesh``
+  wavefront per sample over the cluster-culled triangle kernels
+  (``ops/cuda/mesh_kernel.py``);
+- ``"fast"`` and ``"reference"``: :func:`render_chunk`, one
+  :func:`trace_sample` per sample, which hands an analytic scene to the SoA
+  wavefront (``ops/fast.trace_sample_fast``) or runs the readable pipeline
+  (``ops/intersect.py`` or ``ops/bvh.py``, then ``ops/shade.py``). Both
+  are eager torch, as the JAX package's are XLA code outside Pallas; the
+  readable pipeline's BVH sends triangles to the kernel K7 on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..ops import camera as camera_ops
 from ..ops import fast, tonemap
+from ..ops import rng as rng_ops
 from ..ops.cuda import megakernel
+from ..ops.envmap import EnvNEEInputs
+from ..ops.intersect import intersect_scene
+from ..ops.lights import NEEInputs
+from ..ops.shade import init_paths, shade_step
 from ..scene.parser import load_scene_desc
 from ..scene.structs import Scene, SceneDesc
 from .metrics import SNAPSHOT_ITER, MetricsTracker
@@ -63,17 +74,17 @@ class RenderConfig:
     def resolve_pipeline(self, scene: Scene) -> str:
         """The pipeline the JAX package picks on its accelerator
         (`engine.py:147-213`): ``"pallas"`` (the megakernel) for analytic
-        scenes of 1 to ``megakernel.MAX_GEOMS`` (64) primitives, and for
-        scenes with an environment map in ``'split'`` mode,
-        or in ``'exact'`` mode when the map fits ``MAX_ENV_EXACT_TEXELS``
-        with ``light_only`` gathering and, under ``nee``, no analytic
-        emitter; ``"fast_mesh"`` for scenes with triangles (``supports_mesh``),
-        under ``nee`` only with ``light_only`` gathering.
-        ``pipeline="fast_mesh"`` may be asked for on such a scene. Where the
-        JAX package takes its fast or reference pipeline instead, raises
-        ``NotImplementedError`` naming ROADMAP item 10 or 9; for every other
-        option outside the port, ``NotImplementedError`` naming its item;
-        ``ValueError`` where the JAX code raises one (``nee`` or
+        scenes of 1 to ``megakernel.MAX_GEOMS`` (64) primitives, unless an
+        environment map in ``'exact'`` mode is past ``MAX_ENV_EXACT_TEXELS``,
+        gathered under ``throughput``, or joined by analytic emitters under
+        ``nee``: those take ``"fast"``; ``"fast_mesh"`` for scenes with
+        triangles, no map and at most 64 analytic primitives (under
+        ``nee`` only with ``light_only`` gathering); ``"reference"`` for
+        everything else (0 or more than 64 analytic primitives, a mesh with
+        a map, ``intersector='bvh'`` on an analytic scene). A pipeline asked
+        for by name is taken when it can render the scene. ``ValueError``
+        for unknown values, for a named pipeline that cannot render the
+        scene, and where the JAX code raises one (``nee`` or
         ``env_mode='split'`` with the throughput estimator)."""
         if self.sampler not in ("independent", "sobol"):
             raise ValueError(f"unknown sampler {self.sampler!r}")
@@ -81,56 +92,212 @@ class RenderConfig:
             raise ValueError(f"unknown env_mode {self.env_mode!r}")
         if self.gather_mode not in ("light_only", "throughput"):
             raise ValueError(f"unknown gather_mode {self.gather_mode!r}")
-        if self.pipeline not in ("auto", "pallas", "fast_mesh"):
-            raise NotImplementedError(
-                f"pipeline={self.pipeline!r} is not ported yet (ROADMAP Queue 1 "
-                "items 9 'reference', 10 'fast')"
-            )
-        if self.intersector == "bvh":
-            raise NotImplementedError(
-                "intersector='bvh' is not ported yet (ROADMAP Queue 1 item 9)"
-            )
-        if self.intersector not in ("auto", "bruteforce"):
+        if self.pipeline not in PIPELINES:
+            raise ValueError(f"unknown pipeline {self.pipeline!r} (one of {PIPELINES})")
+        if self.intersector not in ("auto", "bruteforce", "bvh"):
             raise ValueError(f"unknown intersector {self.intersector!r}")
-        if self.bvh_leaf_size != RenderConfig().bvh_leaf_size:
-            raise NotImplementedError(
-                "bvh_leaf_size is an option of intersector='bvh', not ported yet "
-                "(ROADMAP Queue 1 item 9)"
-            )
         if self.nee and self.gather_mode != "light_only":
             raise ValueError("nee requires gather_mode='light_only'")
-        if scene.num_triangles:
-            if self.pipeline == "pallas":
-                raise ValueError("pipeline='pallas' renders analytic scenes only")
+        pipeline = self.pipeline if self.pipeline != "auto" else self._auto_pipeline(scene)
+        if pipeline == "pallas":
+            if not fast.supports(scene):
+                raise ValueError(
+                    f"pipeline='pallas' renders analytic scenes of 1 to {megakernel.MAX_GEOMS} "
+                    "primitives"
+                )
+            megakernel.kernel_options(self, scene)  # raises for invalid estimator options
+        elif pipeline == "fast_mesh":
+            if not scene.num_triangles:
+                raise ValueError("pipeline='fast_mesh' needs a scene with triangles")
             if not fast.supports_mesh(scene):
-                raise NotImplementedError(
-                    "a mesh scene with an environment map or more than "
-                    f"{fast.MAX_UNROLL} analytic primitives runs on "
-                    "pipeline='reference', which is not ported yet (ROADMAP Queue 1 item 9)"
+                raise ValueError(
+                    "pipeline='fast_mesh' renders mesh scenes without an environment map "
+                    f"and with at most {fast.MAX_UNROLL} analytic primitives"
                 )
-            return "fast_mesh"
-        if self.pipeline == "fast_mesh":
-            raise ValueError("pipeline='fast_mesh' needs a scene with triangles")
-        count = scene.cubes.count + scene.spheres.count
-        if not 0 < count <= megakernel.MAX_GEOMS:
-            raise NotImplementedError(
-                f"an analytic scene of {count} primitives (the megakernel takes 1-"
-                f"{megakernel.MAX_GEOMS}) runs on pipeline='reference', which is not "
-                "ported yet (ROADMAP Queue 1 item 9)"
+        elif pipeline == "fast" and not fast.supports(scene):
+            raise ValueError(
+                f"pipeline='fast' renders analytic scenes of 1 to {fast.MAX_UNROLL} primitives"
             )
-        if scene.envmap is not None and self.env_mode == "exact":
-            in_kernel = self.gather_mode == "light_only" and megakernel.supports(scene)
-            if in_kernel and self.nee:
-                in_kernel = megakernel.static_light_table(scene) is None
-            if not in_kernel:
-                raise NotImplementedError(
-                    "this environment-map configuration runs on pipeline='fast' "
-                    "(an exact map past MAX_ENV_EXACT_TEXELS, throughput gathering, "
-                    "or nee with analytic emitters), which is not ported yet "
-                    "(ROADMAP Queue 1 item 10)"
-                )
-        megakernel.kernel_options(self, scene)  # raises for invalid estimator options
-        return "pallas"
+        return pipeline
+
+    def _auto_pipeline(self, scene: Scene) -> str:
+        """The JAX ``resolve_pipeline``'s choice for ``pipeline='auto'`` on
+        its accelerator."""
+        # an exact map stays in the megakernel when it fits its texel budget
+        # under light_only, and, under nee, when the scene has no analytic
+        # emitter (whose combined NEE with the map runs on the fast pipeline)
+        env_ok_exact = False
+        if (scene.envmap is not None and self.env_mode == "exact"
+                and self.gather_mode == "light_only"):
+            h, w = scene.envmap.shape
+            env_ok_exact = h * w <= megakernel.MAX_ENV_EXACT_TEXELS
+            if self.nee and env_ok_exact:
+                env_ok_exact = megakernel.static_light_table(scene) is None
+        env_free = scene.envmap is None or self.env_mode == "split" or env_ok_exact
+        if self.nee:
+            if self.gather_mode == "light_only" and fast.supports(scene):
+                return "pallas" if env_free else "fast"
+            if self.gather_mode == "light_only" and fast.supports_mesh(scene):
+                return "fast_mesh"
+            return "reference"
+        if self.intersector in ("auto", "bruteforce") and fast.supports(scene):
+            return "pallas" if env_free else "fast"
+        if fast.supports_mesh(scene):
+            return "fast_mesh"
+        return "reference"
+
+    def resolve_intersector(self, scene: Scene) -> str:
+        """The reference pipeline's intersector: brute force up to 64
+        primitives (triangles included), the BVH past them."""
+        if self.intersector != "auto":
+            return self.intersector
+        count = scene.cubes.count + scene.spheres.count + scene.num_triangles
+        return "bruteforce" if count <= 64 else "bvh"
+
+
+PIPELINES = ("auto", "pallas", "fast", "reference", "fast_mesh")
+
+
+def make_intersector(scene: Scene, config: RenderConfig) -> Callable:
+    """The reference pipeline's intersector, ``isect(scene, origins,
+    directions) -> Hit``: ``ops.intersect.intersect_scene``, or a
+    ``BVHIntersector`` with leaf size ``config.bvh_leaf_size``."""
+    kind = config.resolve_intersector(scene)
+    if kind == "bruteforce":
+        return intersect_scene
+    from ..ops import bvh as bvh_mod
+
+    return bvh_mod.make_bvh_intersector(scene, leaf_size=config.bvh_leaf_size)
+
+
+def trace_sample(
+    scene: Scene,
+    config: RenderConfig,
+    seed: int,
+    iteration: int,
+    intersector: Optional[Callable] = None,
+    pixel_offset: int = 0,
+    num_pixels: Optional[int] = None,
+    light_sampler=None,
+    pipeline: Optional[str] = None,
+) -> torch.Tensor:
+    """One sample of pixels [pixel_offset, pixel_offset + N): the [N, 3]
+    radiance (light_only) or terminal throughput (throughput mode). Without
+    an ``intersector``, a scene that resolves to ``"fast"`` or ``"pallas"``
+    takes the SoA wavefront (``ops.fast.trace_sample_fast``, the
+    megakernel's per-sample twin); otherwise the readable pipeline runs:
+    raygen, then per bounce ``intersector`` (``intersect_scene`` by
+    default) and ``shade_step``, with area-light NEE when a
+    ``light_sampler`` is given and environment NEE on a scene with a map,
+    under ``config.nee``. ``seed`` is the render seed (the JAX base key is
+    ``PRNGKey(seed)``), ``iteration`` the 1-based sample index.
+    ``pipeline`` is ``config.resolve_pipeline(scene)``, resolved here when
+    not given: under ``nee`` with an exact map that resolution reads the
+    scene's light table back to the host, so a caller that renders many
+    samples resolves it once and passes it."""
+    if pipeline is None:
+        pipeline = config.resolve_pipeline(scene)
+    if config.nee and pipeline not in ("reference", "fast", "pallas"):
+        raise ValueError(
+            "nee at per-sample granularity needs the 'reference' or 'fast' "
+            f"pipeline (resolved {pipeline!r})"
+        )
+    if intersector is None and pipeline in ("fast", "pallas"):
+        return fast.trace_sample_fast(scene, config, seed, iteration, pixel_offset, num_pixels,
+                                      light_sampler=light_sampler)
+
+    cam = scene.camera
+    n = num_pixels if num_pixels is not None else cam.pixel_count
+    dev = cam.position.device
+    isect = intersector if intersector is not None else intersect_scene
+    env = scene.envmap
+    use_area_nee = config.nee and light_sampler is not None
+    use_env_nee = config.nee and env is not None
+    use_nee = use_area_nee or use_env_nee
+    if config.nee and not use_nee:
+        raise ValueError(
+            "config.nee=True needs a light_sampler (ops.lights.make_light_sampler "
+            "on the scene; the Renderer builds one) or an ENVIRONMENT map"
+        )
+
+    # sampler='sobol': the first-vertex dimensions and the leading ld_depths
+    # bounces draw from per-pixel LD lattices, keyed by global pixel id
+    use_ld = config.sampler == "sobol"
+    pix = pixel_offset + torch.arange(n, dtype=torch.int64, device=dev)
+    jitter = lens = None
+    if config.antialias:
+        jitter = (rng_ops.ld_pixel_jitter(seed, iteration, pix) if use_ld
+                  else rng_ops.pixel_jitter(seed, iteration, n, dev))
+    if config.dof:
+        lens = (rng_ops.ld_lens_uniforms(seed, iteration, pix) if use_ld
+                else rng_ops.lens_uniforms(seed, iteration, n, dev))
+    origins, directions = camera_ops.generate_rays(
+        cam, jitter, pixel_offset=pixel_offset, num_pixels=n, lens=lens
+    )
+    paths = init_paths(origins, directions, config.trace_depth)
+    shadow = lambda o, d: isect(scene, o, d)  # noqa: E731
+
+    # the threefry draws of every depth at once (a batch of folded keys)
+    n_ld = min(config.ld_depths, config.trace_depth) if use_ld else 0
+    depths = torch.arange(config.trace_depth, device=dev)
+    u_all = rng_ops.bounce_uniforms(seed, iteration, depths[n_ld:], n, dev)
+    nee_all = (rng_ops.nee_uniforms(seed, iteration, depths[n_ld:], n, dev)
+               if use_area_nee else None)
+    env_all = rng_ops.env_uniforms(seed, iteration, depths, n, dev) if use_env_nee else None
+    options = dict(gather_mode=config.gather_mode, sky_strength=config.sky_strength,
+                   enable_refraction=config.enable_refraction, env=env)
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    # primary rays carry the delta marker: the camera has no NEE competitor
+    prev_pdf = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+    for d in range(config.trace_depth):
+        if d < n_ld:
+            uniforms = rng_ops.ld_bounce_uniforms(seed, iteration, pix, d).T
+            nee_u = (rng_ops.ld_nee_bounce_uniforms(seed, iteration, pix, d)
+                     if use_area_nee else None)
+        else:
+            uniforms = u_all[d - n_ld]
+            nee_u = None if nee_all is None else nee_all[d - n_ld]
+        hit = isect(scene, paths.origin, paths.direction)
+        if not use_nee:
+            paths, contrib = shade_step(paths, hit, scene.materials, uniforms, d,
+                                        config.rr_start_depth, **options)
+        else:
+            nee = env_nee = None
+            if use_area_nee:
+                nee = NEEInputs(sampler=light_sampler, shadow_isect=shadow, uniforms=nee_u)
+            if use_env_nee:
+                env_nee = EnvNEEInputs(env=env, shadow_isect=shadow, uniforms=env_all[d])
+            paths, contrib, prev_pdf = shade_step(
+                paths, hit, scene.materials, uniforms, d, config.rr_start_depth,
+                nee=nee, prev_pdf=prev_pdf, env_nee=env_nee, **options,
+            )
+        radiance = radiance + contrib
+    if config.gather_mode == "throughput":
+        # finalGather parity: every path adds its terminal throughput product
+        return paths.color
+    return radiance
+
+
+def render_chunk(
+    scene: Scene,
+    state: RenderState,
+    config: RenderConfig,
+    num_samples: int,
+    intersector: Optional[Callable] = None,
+    light_sampler=None,
+    pipeline: Optional[str] = None,
+) -> RenderState:
+    """Accumulate ``num_samples`` full-frame samples into the state, one
+    :func:`trace_sample` each, iterations ``state.iteration + 1 + i``;
+    ``pipeline`` as there, resolved once for all of them."""
+    if pipeline is None:
+        pipeline = config.resolve_pipeline(scene)
+    accum = state.accum
+    for i in range(num_samples):
+        accum = accum + trace_sample(scene, config, state.seed, state.iteration + 1 + i,
+                                     intersector, light_sampler=light_sampler,
+                                     pipeline=pipeline)
+    return dataclasses.replace(state, accum=accum, iteration=state.iteration + num_samples)
 
 
 # Samples per megakernel launch.
@@ -248,11 +415,12 @@ class Renderer:
 
     Same lifecycle and semantics as the JAX package's ``Renderer``: a camera
     change is a state reset plus a scene update. ``device`` is explicit: a
-    CUDA device runs the CUDA kernels (the megakernel, or the mesh kernels
-    of a scene with triangles), ``"cpu"`` their plain PyTorch versions; a
-    missing CUDA device raises. A mesh scene's intersector is built once
-    here; ``set_camera`` keeps it (its tables depend on the triangles
-    only)."""
+    CUDA device runs the CUDA kernels (the megakernel, the mesh kernels of
+    a scene with triangles, K7 under the reference pipeline's BVH) and the
+    eager pipelines there, ``"cpu"`` the kernels' plain PyTorch versions; a
+    missing CUDA device raises. A mesh scene's intersector, and the
+    reference pipeline's, are built once here; ``set_camera`` keeps them
+    (their tables depend on the geometry only)."""
 
     def __init__(
         self,
@@ -296,22 +464,35 @@ class Renderer:
         # opt-in reference-parity PSNR snapshot (see step())
         self.psnr_snapshot = False
         self.pipeline = config.resolve_pipeline(self.scene)
-        if self.pipeline == "fast_mesh":
-            sampler = None
-            if config.nee:
-                from ..ops.lights import make_light_sampler
+        # the readable pipeline's intersector; the others carry their own
+        self._intersector = None
+        if self.pipeline == "reference":
+            self._intersector = make_intersector(self.scene, config)
+        if self.pipeline == "pallas":
+            self._step = make_pallas_step()
+            return
+        sampler = None
+        if config.nee:
+            from ..ops.lights import make_light_sampler
 
-                sampler = make_light_sampler(self.scene)
-                if sampler is None:
-                    # emissive triangles stay BRDF-sampled; NEE needs at
-                    # least one analytic (cube/sphere) emitter to aim at
-                    raise ValueError(
-                        "config.nee=True but the scene has no emissive "
-                        "analytic (cube/sphere) lights to sample"
-                    )
+            sampler = make_light_sampler(self.scene)
+            if sampler is None and (self.pipeline == "fast_mesh" or self.scene.envmap is None):
+                # emissive triangles stay BRDF-sampled; NEE needs an analytic
+                # (cube/sphere) emitter or a map to aim at
+                raise ValueError(
+                    "config.nee=True but the scene has no emissive analytic "
+                    "(cube/sphere) lights and no ENVIRONMENT map to sample"
+                )
+        if self.pipeline == "fast_mesh":
             self._step = make_mesh_step(self.scene, light_sampler=sampler)
         else:
-            self._step = make_pallas_step()
+            isect, pipeline = self._intersector, self.pipeline
+
+            def step(scene, state, config, num_samples):
+                return render_chunk(scene, state, config, num_samples, isect,
+                                    light_sampler=sampler, pipeline=pipeline)
+
+            self._step = step
 
     @property
     def iteration(self) -> int:

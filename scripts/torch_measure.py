@@ -2,7 +2,7 @@
 """Measure the PyTorch/CUDA port's kernels on one CUDA card.
 
     python3 scripts/torch_measure.py [--out build/torch_measure.json]
-        [--legs megakernel,ab,schedule,env,mesh,mesh-kernels,mesh-host]
+        [--legs megakernel,ab,schedule,env,mesh,mesh-kernels,mesh-host,fast,reference]
         [--parent DIR [--diag DIR,...] [--diag-edits NAME,...] [--ab-flags="-DX;-DY"]]
         [--cases REGEX]
 
@@ -124,6 +124,19 @@ launches enqueued back to back, of K7 on the last bounce's rays and of a
 one-element torch add, once with the card idle and once queued behind a
 50 ms spin kernel (torch.cuda._sleep), so that no launch waits for the
 card. Run in two checkouts by turns, it compares their host costs.
+
+The eager pipelines' legs (``--legs fast`` and ``--legs reference``, not
+in the default), chip_smoke.py's configurations of phases 20-23: for the
+fast pipeline, env_spheres.txt under throughput gathering, with an emissive
+sphere under nee, and with its map resampled past the megakernel's budget,
+the golden scene (antialias, sobol) and the 'shared' model on cornell.txt;
+for the reference pipeline, the golden scene, the 'naive', 'bvh' and
+'wavefront' models (each compaction) on cornell.txt, and mesh1080p.txt with
+the meadow map without and with NEE (triangles through K7). Each: 3 laps of
+render(4) after a warm-up sample (rays/s, ms/sample), then one render(4)
+under torch.profiler: torch kernels a sample, the device's idle share,
+device time by part (K7, K8, sort and gathers, the rest), the 12 kernels
+that took the most device time, and K7's launches a sample.
 
 Each leg ends with the card's name, power limit, SM clock and temperature.
 Prints the readings as one JSON object and writes it to --out.
@@ -283,6 +296,71 @@ def measure_mesh(device, out):
         r.render(96)
         means[name] = r.linear_image().reshape(-1, 3).mean(0).tolist()
     out["mesh_means_96spp"] = means
+
+
+def eager_readings(r, spp=4, laps=3):
+    """Laps of an eager pipeline's ``r.render(spp)`` after a warm-up sample
+    (rays/s and ms/sample of each), then one more render(spp) under
+    torch.profiler: torch kernels a sample, the device's idle share, device
+    time by part (mesh_groups: K7, K8, the sort and gathers, the rest) and
+    the kernels that took the most device time."""
+    r.step(1)
+    walls = []
+    for _ in range(laps):
+        r.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render(spp)
+        walls.append(time.perf_counter() - t0)
+    pixels = r.scene.camera.pixel_count
+    r.reset()
+    mesh.KERNEL.reset_counts()
+    rows, wall, idle = profile(lambda: r.render(spp))
+    return dict(pipeline=r.pipeline, rays_per_s=stats([pixels * spp / w for w in walls]),
+                ms_per_sample=stats([w / spp * 1e3 for w in walls]),
+                kernels_per_sample=sum(r_[2] for r_ in rows) / spp, idle_share=idle,
+                k7_launches_per_sample=mesh.KERNEL.launches_by_mode.get("full", 0) / spp,
+                profiled_wall_s=wall, device_us=mesh_groups(rows),
+                top_kernels=sorted(rows, key=lambda r_: -r_[1])[:12])
+
+
+def measure_eager(device, out, which):
+    """The fast or the reference pipeline's legs (chip_smoke.py phases
+    20-23): ``which`` 'fast': the three env_spheres configurations of phase
+    20, the golden scene (antialias, sobol) and the 'shared' model on
+    cornell.txt; 'reference': the golden scene, the 'naive', 'bvh' and
+    'wavefront' models (each compaction) on cornell.txt, and mesh1080p with
+    the meadow map without and with NEE."""
+    import chip_smoke
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.models import make_renderer
+
+    scene_path = lambda name: os.path.join(REPO, "scenes", name)  # noqa: E731
+    cornell, golden = scene_path("cornell.txt"), scene_path("cornell_golden.txt")
+    legs = {}
+    if which == "fast":
+        for name, (desc, cfg) in chip_smoke.fast_legs_scenes(scene_path).items():
+            legs[name] = lambda desc=desc, cfg=cfg: Renderer(desc, cfg, seed=SEED, device=device)
+        models = [("shared", "none")]
+    else:
+        mesh_desc = parse_scene(chip_smoke.mesh_env_text(scene_path),
+                                base_dir=os.path.join(REPO, "scenes"))
+        for name, cfg in (("mesh + map", RenderConfig()),
+                          ("mesh + map, nee", RenderConfig(nee=True))):
+            legs[name] = lambda cfg=cfg: Renderer(mesh_desc, cfg, seed=SEED, device=device)
+        models = [("naive", "none"), ("bvh", "none"), ("wavefront", "none"),
+                  ("wavefront", "sort_alive"), ("wavefront", "sort_material")]
+    legs["golden"] = lambda: Renderer(
+        golden, RenderConfig(antialias=True, sampler="sobol", pipeline=which), seed=SEED,
+        device=device)
+    for model, compaction in models:
+        legs[f"{model}[{compaction}]"] = lambda m=model, c=compaction: make_renderer(
+            m, cornell, seed=SEED, compaction=c, device=device)
+    readings = {}
+    for name, make in legs.items():
+        readings[name] = eager_readings(make())
+        print(name, json.dumps({k: v for k, v in readings[name].items()
+                                if k != "top_kernels"}), flush=True)
+    out[f"{which}_legs"] = readings
 
 
 # the same source without its launch bounds (ptxas may take more registers)
@@ -586,11 +664,11 @@ def main() -> int:
                          "whose names it matches")
     ap.add_argument("--legs", default="megakernel,mesh",
                     help="comma-separated: megakernel, ab (the A/B alone, with --parent), "
-                         "schedule, env, mesh, mesh-kernels, mesh-host")
+                         "schedule, env, mesh, mesh-kernels, mesh-host, fast, reference")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
     if not legs or legs - {"megakernel", "ab", "schedule", "env", "mesh", "mesh-kernels",
-                           "mesh-host"}:
+                           "mesh-host", "fast", "reference"}:
         ap.error(f"unknown legs {args.legs!r}")
     if not torch.cuda.is_available():
         print("torch_measure: no CUDA device available", file=sys.stderr)
@@ -617,6 +695,9 @@ def main() -> int:
         measure_mesh_kernels(device, out)
     if "mesh-host" in legs:
         measure_mesh_host(device, out)
+    for which in ("fast", "reference"):
+        if which in legs:
+            measure_eager(device, out, which)
     out["smi_after"] = smi("clocks.current.sm,power.draw,power.limit,temperature.gpu")
 
     text = json.dumps(out, indent=1)

@@ -1293,3 +1293,64 @@ def test_cuda_mesh_renderer_sort_on_and_off(cuda):
         images.append(r.linear_image())
     assert images[0].shape == (270, 480, 3) and images[0].mean() > 0
     np.testing.assert_allclose(images[0], images[1], rtol=1e-6, atol=1e-7)
+
+
+# ───────────── the fast and reference pipelines, the models ─────────────
+
+
+@pytest.mark.cuda
+def test_cuda_bvh_intersector_launches_k7(cuda):
+    """On the card the reference pipeline's BVH hands triangles to K7 (its
+    launch count grows), and its hits meet the threaded walk's
+    (``tri_method='while'``, on the card too) within tests/test_bvh.py's
+    bounds: misses agree on 99% of rays, distances within 2e-3."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.bvh import BVHIntersector
+
+    scene = Scene.from_desc(tri_scene_desc(), cuda)
+    rng = np.random.default_rng(4)
+    o = rng.uniform(-4, 4, (4096, 3)).astype(np.float32) + np.float32([0, 3, 0])
+    d = rng.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+    isect = BVHIntersector(scene, leaf_size=4)
+    assert isect.tri_method == "cluster"
+    tmesh.KERNEL.reset_counts()
+    got = isect(scene, o, d)
+    assert tmesh.KERNEL.launches_by_mode == {"full": 1}
+    want = BVHIntersector(scene, leaf_size=4, tri_method="while")(scene, o, d)
+    assert tmesh.KERNEL.launches == 1
+    miss_agree = float((got.miss == want.miss).float().mean())
+    assert miss_agree > 0.99 and int((~got.miss).sum()) > 256
+    both = ~got.miss & ~want.miss
+    np.testing.assert_allclose(got.t[both].cpu().numpy(), want.t[both].cpu().numpy(),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [dict(pipeline="fast"), dict(pipeline="fast", nee=True),
+                                    dict(pipeline="reference"),
+                                    dict(pipeline="reference", intersector="bvh", nee=True)],
+                         ids=["fast", "fast-nee", "reference", "reference-bvh-nee"])
+def test_cuda_eager_pipelines_match_the_cpu(config, cuda):
+    """The fast and reference pipelines on the card against the same port
+    code on the CPU, 64×64, depth 8, 2 spp: the ROADMAP oracle bound (torch's
+    CPU and CUDA math round differently)."""
+    images = []
+    for device in (cuda, "cpu"):
+        r = Renderer(_small(), RenderConfig(samples_per_launch=2, **config), device=device)
+        assert r.pipeline == config["pipeline"]
+        r.render(2)
+        images.append(r.state.accum.cpu().numpy())
+    assert_within_oracle_tolerance(*images)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["naive", "shared", "bvh", "megakernel", "wavefront"])
+def test_cuda_every_model_renders(model, cuda):
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.models import make_renderer
+
+    r = make_renderer(model, _small(), RenderConfig(trace_depth=3, samples_per_launch=2),
+                      device=cuda)
+    r.render(2)
+    img = r.linear_image()
+    assert img.shape == (64, 64, 3) and np.isfinite(img).all() and img.max() > 0.05

@@ -1,6 +1,7 @@
 """PyTorch port, render driver: the port's Renderer on the CPU against the
 JAX package's megakernel step in interpret mode, the tonemaps, resets,
-PNG naming, state hand-over and the options this slice does not carry.
+PNG naming, state hand-over and the routing of the options and scenes the
+megakernel does not take.
 
 Tolerances are those of test_torch_megakernel.py (same oracle, same
 reasons, same check)."""
@@ -17,6 +18,7 @@ import torch
 from cosc_4397_pathtracing_raytracing_project_tpu import RenderConfig as JConfig
 from cosc_4397_pathtracing_raytracing_project_tpu.ops import tonemap as jtonemap
 from cosc_4397_pathtracing_raytracing_project_tpu.ops.pallas import megakernel as jmk
+from cosc_4397_pathtracing_raytracing_project_tpu.render import engine as jengine
 from cosc_4397_pathtracing_raytracing_project_tpu.render.engine import make_pallas_step
 from cosc_4397_pathtracing_raytracing_project_tpu.render.state import RenderState as JState
 from cosc_4397_pathtracing_raytracing_project_tpu.scene import Scene as JScene
@@ -160,15 +162,34 @@ def test_cuda_device_is_explicit():
         Renderer(parse_scene(CORNELL_SMALL), RenderConfig(), device="cuda")
 
 
+def _jax_route(jscene, config, monkeypatch):
+    """The JAX package's pipeline for ``config`` on its accelerator."""
+    monkeypatch.setattr(jengine.jax, "devices", lambda: [type("D", (), {"platform": "tpu"})()])
+    try:
+        return config.resolve_pipeline(jscene)
+    finally:
+        monkeypatch.undo()
+
+
 @pytest.mark.parametrize(
     "overrides",
     [dict(pipeline="fast"), dict(pipeline="reference"), dict(intersector="bvh"),
      dict(bvh_leaf_size=8)],
     ids=lambda d: next(iter(d)),
 )
-def test_unported_options_raise(overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _renderer(**overrides)
+def test_unported_options_raise(overrides, monkeypatch):
+    """The options that raised before the fast and reference pipelines were
+    ported now resolve as the JAX package's accelerator branch resolves
+    them (fast, reference, reference with the BVH, the megakernel), and
+    render."""
+    want = _jax_route(JScene.from_desc(jparse(CORNELL_SMALL)), JConfig(**overrides), monkeypatch)
+    routes = {("pipeline", "fast"): "fast", ("pipeline", "reference"): "reference",
+              ("intersector", "bvh"): "reference", ("bvh_leaf_size", 8): "pallas"}
+    assert want == routes[next(iter(overrides.items()))]
+    r = _renderer(trace_depth=1, **overrides)
+    assert r.pipeline == want
+    r.render(1)
+    assert np.isfinite(r.linear_image()).all() and r.linear_image().mean() > 0
 
 
 @pytest.mark.parametrize(
@@ -210,17 +231,21 @@ def test_twenty_cubes_route_to_the_megakernel(config):
 
 
 @pytest.mark.parametrize("count", [0, 65])
-def test_primitive_counts_outside_the_megakernel_raise(count):
-    """0 or more than 64 analytic primitives run on the JAX reference
-    pipeline, which the port does not carry yet."""
+def test_primitive_counts_outside_the_megakernel_raise(count, monkeypatch):
+    """0 or more than 64 analytic primitives run on the reference pipeline,
+    as in JAX (brute force for 0, the BVH past 64), and render."""
     text = _cubes_text(count)
     scene = Scene.from_desc(parse_scene(text), "cpu")
     assert scene.cubes.count + scene.spheres.count == count
     assert not tmk.supports(scene) and not jmk.supports(JScene.from_desc(jparse(text)))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        RenderConfig().resolve_pipeline(scene)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Renderer(scene, RenderConfig(), device="cpu")
+    assert _jax_route(JScene.from_desc(jparse(text)), JConfig(), monkeypatch) == "reference"
+    assert RenderConfig().resolve_pipeline(scene) == "reference"
+    assert RenderConfig().resolve_intersector(scene) == ("bvh" if count else "bruteforce")
+    r = Renderer(scene, RenderConfig(trace_depth=1), device="cpu")
+    assert r.pipeline == "reference"
+    r.render(1)
+    img = r.linear_image()
+    assert np.isfinite(img).all() and (img.mean() > 0) == (count > 0)
 
 
 def test_unreferenced_materials_are_dropped_when_packing():

@@ -290,18 +290,13 @@ ROUTES = [
 @pytest.mark.parametrize("kind, cfg", ROUTES, ids=[f"{k}-{c}" for k, c in ROUTES])
 def test_resolve_pipeline_routes_as_jax_on_its_accelerator(kind, cfg, tmp_path, monkeypatch):
     """"pallas" exactly where the JAX package's accelerator branch picks
-    it; where it picks "fast", the port raises NotImplementedError naming
-    ROADMAP item 10."""
+    it, "fast" where it picks the fast pipeline."""
     jscene, scene = _scenes(kind, tmp_path)
     monkeypatch.setattr(jengine.jax, "devices", lambda: [type("D", (), {"platform": "tpu"})()])
     want = JConfig(**cfg).resolve_pipeline(jscene)
     monkeypatch.undo()
     assert want in ("pallas", "fast")
-    if want == "pallas":
-        assert RenderConfig(**cfg).resolve_pipeline(scene) == "pallas"
-    else:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            RenderConfig(**cfg).resolve_pipeline(scene)
+    assert RenderConfig(**cfg).resolve_pipeline(scene) == want
 
 
 RAISES = [
