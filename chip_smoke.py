@@ -132,7 +132,28 @@ Phases, in order; any failure raises and exits non-zero:
    and with nee, each a warm-up sample then render(16): rays/s, ms a
    sample, K7 launches a sample (at least one), idle share; then at 480x270
    and 1 spp, triangles through K7 against the threaded BVH walk on the
-   card (tri_method='while'), tests/test_bvh.py's bound; then one JSON
+   card (tri_method='while'), tests/test_bvh.py's bound;
+24. the command line on the card, each run a `python -m
+   cosc_4397_pathtracing_raytracing_project_tpu_torch` subprocess with the
+   default device (four at once, then the resumed one): (a) the golden at
+   16 spp with antialias, sobol and NEE, with and without --denoise (and
+   --hdr): the denoised PNG's PSNR at least the raw one's + 3 dB (the JAX
+   package's contract, tests/test_denoise.py); (b) the denoised PNG within
+   1 LSB of the library's Renderer.render(16) + save_png(denoise=True), the
+   same seed and steps; (c) cornell.txt to 100 spp with --checkpoint, then
+   --resume to 200 spp: the checkpoint's accumulator bit for bit an
+   uninterrupted library render(200), in the JAX package's npz fields; (d)
+   --adaptive --iterations 64 --denoise --checkpoint (K6) writes the
+   adaptive fields; (e) the denoiser on the card against its CPU version:
+   render_aovs on cornell.txt at 800x800 and mesh1080p.txt at 160x90 (miss
+   masks identical, the rest within 1e-4 but on at most 0.5% of pixels,
+   each reproduced on the CPU with the card's sqrt, or an exact tie) and
+   atrous_denoise on the same inputs within 1e-4; (f) the card's times of
+   render_aovs on cornell at 800x800 and of atrous_denoise at 800x800
+   (median of 5 after a warm-up), of render_aovs on mesh1080p at 1920x1080
+   (median of 3, warmed by (e)), and profile_pipeline on cornell.txt; (g) the preview server on the card:
+   two frames, an orbit that resets the iteration, the denoise toggle's
+   frame; and the phase's time; then one JSON
    line describing each ported kernel (K6's times and bound are the
    round's; K7's and K8's are the sums over one mesh pipeline sample's
    launches, whose count 'launches_per_sample' gives; K7's
@@ -143,10 +164,12 @@ Every leg sets the launch counts to 0 just before it and reads them just
 after; a leg whose kernel variant was never launched fails. Phases 1-15 are
 the megakernel's (kernels K1-K6), 16-18 the mesh pipeline's (K7, K8), 20-23
 the eager pipelines' (K1 through the megakernel model, K7 through the
-reference pipeline's BVH). It needs a CUDA device and the repository's
+reference pipeline's BVH), 24 the command line's (K1, K2 and K6 through its
+subprocesses; the launches of its library and server runs are read here). It needs a CUDA device and the repository's
 files: without either it fails before printing any result.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -302,6 +325,20 @@ TRANS       1.5 3.5 2
 ROTAT       0 0 0
 SCALE       .8 .8 .8
 """
+
+# phase 24: the denoiser's gain at 16 spp on the golden with NEE (the JAX
+# package's contract, tests/test_denoise.py), the denoiser on the card
+# against the CPU (|d| 1e-4, the kernel-vs-plain bound, but on pixels where
+# torch's sqrt rounds otherwise on the card, at most ORACLE_SHARE of them),
+# the preview server's samples a pose, and the time a command line run may
+# take
+DENOISE_GAIN_DB = 3.0
+AOV_TOL = 1e-4
+# a mesh1080p AOV pass takes ~28 s on an H100 at 700 W, and five passed
+# within 0.08% of each other: three keep the script inside its time limit
+MESH_AOV_REPS = 3
+SERVER_SPP = 64
+CLI_TIMEOUT = 600
 
 # the adaptive legs' dispatches at 800x800 (AdaptiveRenderer.render(256):
 # 325 tiles of 32x64, a 64-spp warm-up, then 23 rounds of 32 spp on a
@@ -999,6 +1036,327 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
                   for k, leg in mesh_env.items()})
     print("eager pipelines: " + json.dumps(readings))
     return k7
+
+
+def _cli(args):
+    """Start ``python -m <the port> args`` from the repository's root."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "cosc_4397_pathtracing_raytracing_project_tpu_torch", *args],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+
+
+def _finish(proc, what):
+    """Wait for a command line run (killed if it outlives CLI_TIMEOUT); any
+    exit but 0 fails the phase."""
+    try:
+        out, _ = proc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"the command line's {what} run exited {proc.returncode}:\n{out[-4000:]}")
+
+
+def _exact_ties(scene, o, d):
+    """Which rays' nearest hit is an exact tie on ``scene`` (on the CPU):
+    two primitives at the same distance, or, on a cube, two slab axes
+    entering at the same distance (an edge, whose face is the tie). The
+    card's torch may break such a tie in another order than the CPU's."""
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import intersect as ix
+
+    cand = []
+    if scene.cubes.count:
+        cand.append(ix.cube_candidate_t(scene.cubes, o, d))
+    if scene.spheres.count:
+        cand.append(ix.sphere_candidate_t(scene.spheres, o, d))
+    if scene.num_triangles:
+        cand.append(ix.triangle_candidate_t(scene.triangles, o, d))
+    t, idx = torch.sort(torch.cat(cand, dim=1), dim=1)
+    ties = (t[:, 0] == t[:, 1]) & (t[:, 0] < 1e30)  # 1e30: a miss
+    if scene.cubes.count:
+        is_cube = idx[:, 0] < scene.cubes.count
+        inv = scene.cubes.inv_transform[torch.where(is_cube, idx[:, 0], 0)]
+        q_o, q_d = ix._to_object_space(inv, o, d)
+        enter = torch.minimum((-0.5 - q_o) / q_d, (0.5 - q_o) / q_d)
+        top = torch.sort(torch.where(enter > 0, enter, -3.4e38), dim=1, descending=True).values
+        ties |= is_cube & (top[:, 0] == top[:, 1]) & (top[:, 0] > 0)
+    return ties
+
+
+@contextlib.contextmanager
+def _sqrt_on(device):
+    """``torch.sqrt`` of every tensor computed on ``device`` and brought
+    back. Torch's float32 sqrt rounds some inputs differently on the CPU
+    and on the card (the CPU's also differs from the correctly rounded
+    value, a float64 sqrt on the card rounded to float32), while its
+    add, multiply and divide agree bit for bit."""
+    import torch
+
+    sqrt = torch.sqrt
+    torch.sqrt = lambda x: sqrt(x.to(device)).to(x.device)
+    try:
+        yield
+    finally:
+        torch.sqrt = sqrt
+
+
+def _aovs_agree(what, got, want, scene_cpu):
+    """The AOV pass on the card against the CPU: miss masks identical,
+    depth, albedo and normal within AOV_TOL but on at most ORACLE_SHARE of
+    pixels (card against CPU, the same code), each of which the card's sqrt
+    explains: traced again on the CPU with the card's sqrt it gives the
+    card's AOVs within AOV_TOL, or its nearest hit is an exact tie that the
+    two devices break in different orders."""
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.intersect import (
+        intersect_scene,
+        take_rows,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.denoise import _center_rays
+
+    if not torch.equal(got.miss.cpu(), want.miss):
+        raise AssertionError(f"{what}: the card's miss mask differs from the CPU's")
+    diffs = [(g.cpu() - w).abs() for g, w in zip(got[:3], want[:3])]
+    diffs = [d.amax(dim=-1) if d.dim() == 3 else d for d in diffs]
+    diffs[2] = diffs[2] / torch.clamp_min(want.depth, 1.0)  # depth: relative
+    off = (diffs[0] > AOV_TOL) | (diffs[1] > AOV_TOL) | (diffs[2] > AOV_TOL)
+    rest = max(float(torch.where(off, 0.0, d).max()) for d in diffs)
+    n_off = int(off.sum())
+    if n_off:
+        ys, xs = torch.nonzero(off, as_tuple=True)
+        rays = _center_rays(scene_cpu.camera, ys * want.miss.shape[1] + xs)
+        with _sqrt_on(got.miss.device):
+            hit = intersect_scene(scene_cpu, *_center_rays(scene_cpu.camera,
+                                                           ys * want.miss.shape[1] + xs))
+        card = [g.cpu()[ys, xs] for g in got[:3]]
+        explained = (
+            ((take_rows(scene_cpu.materials.color, hit.material_id) - card[0]).abs().amax(dim=1)
+             <= AOV_TOL)
+            & ((hit.normal - card[1]).abs().amax(dim=1) <= AOV_TOL)
+            & ((hit.t - card[2]).abs() <= AOV_TOL * torch.clamp_min(card[2], 1.0))
+        ) | _exact_ties(scene_cpu, *rays)
+        if not bool(explained.all()) or n_off > ORACLE_SHARE * off.numel():
+            raise AssertionError(f"{what}: {n_off} pixels differ, explained "
+                                 f"{explained.tolist()} at {list(zip(ys.tolist(), xs.tolist()))}")
+    print(f"  {what}: miss masks identical; max |d| (depth: relative) {rest:.3e} (bound "
+          f"{AOV_TOL}) but on {n_off} "
+          f"pixels (bound {ORACLE_SHARE} of {off.numel()}), each reproduced on the CPU with the "
+          f"card's sqrt, or an exact tie")
+
+
+def _cli_phase(device, seed, scene_path, ref_img, smi):
+    """Phase 24: the command line on the card (python -m of the port), the
+    denoiser, checkpoints, profiling and the preview server."""
+    import json as _json
+    import shutil
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
+        RenderConfig,
+        Renderer,
+        Scene,
+        load_scene_desc,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import read_png
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render import denoise
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.profiling import (
+        profile_pipeline,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.viewer import PreviewServer
+
+    t_phase = time.perf_counter()
+    out = os.path.join(REPO, "build", "cli_phase")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    at = lambda name: os.path.join(out, name)  # noqa: E731
+    golden, cornell = scene_path("cornell_golden.txt"), scene_path("cornell.txt")
+    print(f"[24] the command line on the card: python -m "
+          f"cosc_4397_pathtracing_raytracing_project_tpu_torch ({smi})")
+    golden_flags = ["--antialias", "--sampler", "sobol", "--nee", "--iterations", "16",
+                    "--chunk", "16", "--hdr", "--quiet"]
+    t0 = time.perf_counter()
+    runs = {
+        "golden denoised": _cli([golden, *golden_flags, "--denoise", "--output", at("A.png")]),
+        "golden raw": _cli([golden, *golden_flags, "--output", at("R.png")]),
+        "resume 100": _cli([cornell, "--sampler", "sobol", "--iterations", "100", "--chunk", "50",
+                            "--checkpoint", at("C1"), "--output", at("C1.png"), "--quiet"]),
+        "adaptive": _cli([cornell, "--adaptive", "--iterations", "64", "--denoise",
+                          "--checkpoint", at("C3"), "--output", at("D.png"), "--quiet"]),
+    }
+    try:
+        for what, proc in runs.items():
+            _finish(proc, what)
+    finally:  # a failed run leaves none of the others running
+        for proc in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    _finish(_cli([cornell, "--sampler", "sobol", "--resume", at("C1.npz"), "--iterations", "200",
+                  "--chunk", "50", "--checkpoint", at("C2"), "--output", at("C2.png"), "--quiet"]),
+            "resume 200")
+    cli_s = time.perf_counter() - t0
+    print(f"  five command line runs (four at once, then the resumed one): {cli_s:.1f} s")
+
+    # (a) the denoiser's gain on the golden at 16 spp with NEE
+    def png_psnr(name):
+        return _golden_psnr(read_png(at(name))[:, ::-1].astype(np.float32) / 255.0, ref_img)
+
+    for name in ("A.png", "A.hdr", "R.png", "R.hdr"):
+        if not os.path.exists(at(name)):
+            raise AssertionError(f"the command line wrote no {name}")
+    psnr_raw, psnr_den = png_psnr("R.png"), png_psnr("A.png")
+    print(f"  (a) golden, 16 spp, NEE, sobol, antialias: raw {psnr_raw:.4f} dB, denoised "
+          f"{psnr_den:.4f} dB (+{psnr_den - psnr_raw:.4f}; gate +{DENOISE_GAIN_DB})")
+    if psnr_den < psnr_raw + DENOISE_GAIN_DB:
+        raise AssertionError("the denoiser gains less than its gate")
+
+    # (b) the command line against the library, the same seed and steps (the
+    # metrics block's iteration-10 snapshot splits the first step)
+    desc = load_scene_desc(golden)
+    mk.KERNEL.reset_counts()
+    lib = Renderer(desc, RenderConfig(trace_depth=desc.trace_depth, antialias=True,
+                                      samples_per_launch=16, nee=True, sampler="sobol"),
+                   seed=seed, device=device)
+    lib.psnr_snapshot = True
+    lib.render(16)
+    lib_launches = dict(mk.KERNEL.launches_by_variant)
+    lib.save_png(at("L.png"), denoise=True)
+    lsb = int(np.abs(read_png(at("L.png")).astype(np.int32)
+                     - read_png(at("A.png")).astype(np.int32)).max())
+    print(f"  (b) command line vs library, denoised PNG: max |d| {lsb} LSB (gate 1); "
+          f"library launches {lib_launches}")
+    if lsb > 1 or sum(lib_launches.values()) <= 0:
+        raise AssertionError("the command line's denoised PNG differs from the library's")
+
+    # (c) resume: the resumed accumulator against an uninterrupted render
+    mk.KERNEL.reset_counts()
+    whole = Renderer(cornell, RenderConfig(samples_per_launch=50, sampler="sobol"), seed=seed,
+                     device=device)
+    whole.psnr_snapshot = True
+    whole.render(200)
+    whole_launches = dict(mk.KERNEL.launches_by_variant)
+    with np.load(at("C2.npz")) as ck:
+        fields = sorted(ck.files)
+        same = np.array_equal(ck["accum"], whole.state.accum.cpu().numpy())
+        ck_iter, ck_key = int(ck["iteration"]), ck["key"].tolist()
+    print(f"  (c) resumed 100 -> 200 spp: fields {fields}, iteration {ck_iter}, key {ck_key}; "
+          f"bit for bit the uninterrupted render(200): {same} (its launches {whole_launches})")
+    if not same or fields != ["accum", "iteration", "key", "meta", "version"] or ck_iter != 200:
+        raise AssertionError("the resumed render is not the uninterrupted one")
+
+    # (d) the adaptive path (K6) wrote its checkpoint
+    with np.load(at("C3.npz")) as ck:
+        ada_fields = sorted(ck.files)
+    print(f"  (d) --adaptive --iterations 64 --denoise: checkpoint fields {ada_fields}")
+    if not {"acc_a", "acc_b", "counts", "seed", "budget_spent"} <= set(ada_fields):
+        raise AssertionError("the adaptive checkpoint lacks its fields")
+
+    # (e) the denoiser on the card against its CPU version
+    cdesc = load_scene_desc(cornell)
+    c_dev, c_cpu = Scene.from_desc(cdesc, device), Scene.from_desc(cdesc, "cpu")
+    aov_dev, aov_cpu = denoise.render_aovs(c_dev), denoise.render_aovs(c_cpu)
+    _aovs_agree("(e) AOVs, cornell.txt {}x{}".format(*c_cpu.camera.resolution), aov_dev,
+                aov_cpu, c_cpu)
+    img = torch.as_tensor(whole.linear_image())
+    f_dev = denoise.atrous_denoise(img.to(device), denoise.Aovs(*[a.to(device) for a in aov_cpu]))
+    filter_err = float((f_dev.cpu() - denoise.atrous_denoise(img, aov_cpu)).abs().max())
+    mdesc = load_scene_desc(scene_path("mesh1080p.txt"))
+    small = dataclasses.replace(mdesc, camera=dataclasses.replace(mdesc.camera,
+                                                                   resolution=(160, 90)))
+    m_dev, m_cpu = Scene.from_desc(small, device), Scene.from_desc(small, "cpu")
+    t0 = time.perf_counter()
+    m_aov_cpu = denoise.render_aovs(m_cpu)
+    cpu_mesh_s = time.perf_counter() - t0
+    _aovs_agree("(e) AOVs, mesh1080p.txt 160x90", denoise.render_aovs(m_dev), m_aov_cpu, m_cpu)
+    noisy = torch.as_tensor(np.random.default_rng(seed).uniform(0, 2, (90, 160, 3)),
+                            dtype=torch.float32)
+    m_f_dev = denoise.atrous_denoise(noisy.to(device),
+                                     denoise.Aovs(*[a.to(device) for a in m_aov_cpu]))
+    filter_err = max(filter_err, float((m_f_dev.cpu()
+                                        - denoise.atrous_denoise(noisy, m_aov_cpu)).abs().max()))
+    print(f"  (e) filter on the same inputs, card vs CPU (cornell, mesh): "
+          f"max |d| {filter_err:.3e} (bound {AOV_TOL}); the CPU's mesh AOV pass {cpu_mesh_s:.1f} s")
+    if filter_err > AOV_TOL:
+        raise AssertionError("the filter on the card disagrees with the CPU")
+
+    # (f) times on the card
+    mesh_full = Scene.from_desc(mdesc, device)
+    aov_ms = _median_ms(lambda: denoise.render_aovs(c_dev), reps=5)
+    img_dev = img.to(device)
+    filter_ms = _median_ms(lambda: denoise.atrous_denoise(img_dev, aov_dev), reps=5)
+    # (e)'s pass at 160x90 ran the same chunk shapes, so no warm-up pass here
+    mesh_times = []
+    for _ in range(MESH_AOV_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        denoise.render_aovs(mesh_full)
+        torch.cuda.synchronize()
+        mesh_times.append((time.perf_counter() - t0) * 1e3)
+    mesh_aov_ms = sorted(mesh_times)[len(mesh_times) // 2]
+    chunk = min(1 << 16, max(256, (1 << 27) // mesh_full.num_triangles))
+    prof = profile_pipeline(c_dev, RenderConfig(sampler="sobol"))
+    print(f"  (f) on the card: render_aovs cornell {aov_ms:.3f} ms, "
+          f"atrous_denoise {filter_ms:.3f} ms (median of 5); render_aovs mesh1080p "
+          f"{'x'.join(map(str, mesh_full.camera.resolution))} {mesh_aov_ms:.1f} ms (median of "
+          f"{MESH_AOV_REPS}; {-(-mesh_full.camera.pixel_count // chunk)} chunks of {chunk} "
+          f"pixels x {mesh_full.num_triangles} triangles; host clock, each pass "
+          f"{', '.join(f'{t:.1f}' for t in mesh_times)} ms)")
+    print(f"  (f) profile_pipeline, cornell.txt: {_json.dumps(prof)}")
+
+    # (g) the preview server on the card
+    sdesc = load_scene_desc(cornell)
+    sdesc.iterations = SERVER_SPP
+    mk.KERNEL.reset_counts()
+    r = Renderer(sdesc, RenderConfig(samples_per_launch=8), seed=seed, device=device)
+    srv = PreviewServer(r, lookat=sdesc.camera.lookat, port=0).start(block=False)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+
+        def fetch(path):
+            return urllib.request.urlopen(base + path, timeout=60).read()
+
+        def post(msg):
+            req = urllib.request.Request(base + "/control", data=_json.dumps(msg).encode(),
+                                         method="POST")
+            urllib.request.urlopen(req, timeout=60).read()
+
+        def wait(cond, what):
+            deadline = time.monotonic() + 120
+            while not cond():
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"preview server: timed out waiting for {what}")
+                time.sleep(0.01)
+
+        frames = [fetch("/frame.png") for _ in range(2)]
+        wait(lambda: r.iteration >= SERVER_SPP, "the first pose's samples")
+        resets = []
+        set_camera = r.set_camera
+        r.set_camera = lambda cam: (resets.append(r.iteration), set_camera(cam),
+                                    resets.append(r.iteration))
+        gen = srv._camera_gen
+        post({"type": "orbit", "dx": 60, "dy": 0})
+        wait(lambda: srv._camera_gen == gen + 1, "the camera rebuild")
+        post({"type": "key", "key": "d"})
+        denoised = fetch("/frame.png")
+    finally:
+        srv.stop()
+    server_launches = dict(mk.KERNEL.launches_by_variant)
+    ok = (all(f[:4] == b"\x89PNG" for f in frames + [denoised]) and resets == [SERVER_SPP, 0]
+          and srv._aovs is not None and srv._aovs.albedo.device == r.device)
+    print(f"  (g) preview server: 2 frames, orbit reset the iteration {resets}, denoised frame "
+          f"{len(denoised)} bytes; launches {server_launches}")
+    if not ok or server_launches.get("main", 0) <= 0:
+        raise AssertionError("the preview server failed a check")
+    print(f"  phase 24: {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 
 def _environment_phases(device, seed, chunk, pix, scene_path):
@@ -1722,6 +2080,7 @@ def main() -> int:
         env_legs={k: dict(rays_per_s=v[0], idle_share=v[1]) for k, v in env["legs"].items()})))
 
     k7_reference = _pipeline_phases(device, seed, scene_path, ref_img, smi)
+    _cli_phase(device, seed, scene_path, ref_img, smi)
     print(f"  peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

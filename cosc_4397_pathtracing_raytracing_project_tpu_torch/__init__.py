@@ -8,14 +8,18 @@ Hopper, each with a plain PyTorch version that runs on the CPU. This package
 imports torch and never jax.
 """
 
+from .version import __version__
+
 from .render.adaptive import AdaptiveRenderer
 from .render.engine import RenderConfig, Renderer
 from .render.state import RenderState
-from .scene import Scene, SceneDesc, load_scene_desc, parse_scene
+from .scene import Scene, SceneDesc, load_scene, load_scene_desc, parse_scene
 
 __all__ = [
+    "__version__",
     "Scene",
     "SceneDesc",
+    "load_scene",
     "load_scene_desc",
     "parse_scene",
     "Renderer",

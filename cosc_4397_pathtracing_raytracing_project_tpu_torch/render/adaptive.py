@@ -352,14 +352,35 @@ class AdaptiveRenderer:
         return self
 
     def save_checkpoint(self, path: str) -> str:
-        raise NotImplementedError(
-            "adaptive checkpoints are not ported yet (ROADMAP Queue 1 item 16)"
-        )
+        from .checkpoint import save_adaptive_checkpoint
+
+        meta = {
+            "image_name": self.image_name,
+            "resolution": list(map(int, self.scene.camera.resolution)),
+            "num_tiles": int(self.num_tiles),
+        }
+        return save_adaptive_checkpoint(path, self, meta)
 
     def load_checkpoint(self, path: str) -> "AdaptiveRenderer":
-        raise NotImplementedError(
-            "adaptive checkpoints are not ported yet (ROADMAP Queue 1 item 16)"
-        )
+        """Continue from an adaptive checkpoint of either package (per-tile
+        iteration counters key every stream, so the resumed render is bit
+        for bit the uninterrupted one); its tensors move to this
+        renderer's device."""
+        from .checkpoint import load_adaptive_checkpoint
+
+        state, _ = load_adaptive_checkpoint(path, self.device)
+        if state["counts"].shape[0] == self.num_tiles:
+            # the older format's counts lack the trash tile's entry
+            state["counts"] = torch.cat([state["counts"], state["counts"].new_zeros(1)])
+        if state["acc_a"].shape != self._acc_a.shape or (
+            state["counts"].shape[0] != self.num_tiles + 1
+        ):
+            raise ValueError(
+                f"checkpoint layout ({state['acc_a'].shape[0] - 1} pixels, "
+                f"{state['counts'].shape[0]} tiles) does not match renderer "
+                f"({self._n} pixels, {self.num_tiles} tiles)"
+            )
+        return self.load_state(state)
 
     # ── outputs ──
 
@@ -393,9 +414,10 @@ class AdaptiveRenderer:
         return (total / np.maximum(counts, 1.0)).reshape(h, w, 3)
 
     def denoised_image(self, **kw) -> np.ndarray:
-        raise NotImplementedError(
-            "the denoiser is not ported yet (ROADMAP Queue 1 item 14)"
-        )
+        """[H, W, 3] float32 linear radiance after the À-Trous denoiser."""
+        from .denoise import denoise_image
+
+        return denoise_image(self, **kw)
 
     def save_png(self, path: Optional[str] = None, denoise: bool = False) -> str:
         """Write the PNG with the reference's save transform (linear clamp,

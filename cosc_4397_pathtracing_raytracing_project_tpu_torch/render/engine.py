@@ -39,6 +39,7 @@ from ..ops.lights import NEEInputs
 from ..ops.shade import init_paths, shade_step
 from ..scene.parser import load_scene_desc
 from ..scene.structs import Scene, SceneDesc
+from ..utils import debug
 from .metrics import SNAPSHOT_ITER, MetricsTracker
 from .state import RenderState
 
@@ -530,6 +531,8 @@ class Renderer:
         if num_samples:
             self.state = self._step(self.scene, self.state, self.config, num_samples)
             self._host_iteration += num_samples
+        if debug.nan_checks_enabled():
+            debug.check_nans(self.state.accum, self._host_iteration)
         if sync:
             self.sync()
         self.metrics.record(total, time.perf_counter() - t0)
@@ -571,18 +574,61 @@ class Renderer:
         img = tonemap.display_image(self.state.accum, self.state.iteration)
         return img.cpu().numpy().reshape(h, w, 3)
 
-    def save_png(self, path: Optional[str] = None) -> str:
+    def denoised_image(self, **filter_kwargs) -> np.ndarray:
+        """[H, W, 3] float32 linear radiance after the feature-guided
+        À-Trous denoiser (``render.denoise``); keyword arguments pass
+        through to ``atrous_denoise``."""
+        from .denoise import denoise_image
+
+        return denoise_image(self, **filter_kwargs)
+
+    def save_png(self, path: Optional[str] = None, denoise: bool = False) -> str:
         """Write the PNG exactly as the reference's saveImage: linear clamp,
-        no gamma, horizontal mirror, ``<name>.<timestamp>.<N>samp.png``."""
+        no gamma, horizontal mirror, ``<name>.<timestamp>.<N>samp.png``.
+        With ``denoise=True`` the accumulator mean goes through the À-Trous
+        denoiser first, then is clipped, scaled by 255, mirrored and
+        truncated to uint8."""
         from ..io.png import write_png
         from ..utils.timing import current_time_string
 
         w, h = self.scene.camera.resolution
-        img = tonemap.save_image(self.state.accum, self.state.iteration, w, h)
+        if denoise:
+            lin = self.denoised_image()
+            img = (np.clip(lin, 0.0, 1.0) * 255.0)[:, ::-1, :].astype(np.uint8)
+        else:
+            img = tonemap.save_image(self.state.accum, self.state.iteration, w, h).cpu().numpy()
         if path is None:
             path = f"{self.image_name}.{current_time_string()}.{self.iteration}samp.png"
-        write_png(path, img.cpu().numpy())
+        write_png(path, img)
         return path
+
+    # ── checkpoint / resume: the accumulator, the iteration count and the
+    # seed are the whole render state ──
+
+    def save_checkpoint(self, path: str) -> str:
+        from .checkpoint import save_checkpoint
+
+        meta = {
+            "image_name": self.image_name,
+            "resolution": list(self.scene.camera.resolution),
+            "target_iterations": self.target_iterations,
+        }
+        return save_checkpoint(path, self.state, meta)
+
+    def load_checkpoint(self, path: str) -> "Renderer":
+        """Continue from a checkpoint of either package; its accumulator
+        moves to this renderer's device."""
+        from .checkpoint import load_checkpoint
+
+        state, _ = load_checkpoint(path, self.device)
+        if state.accum.shape != self.state.accum.shape:
+            raise ValueError(
+                f"checkpoint resolution {tuple(state.accum.shape)} does not match "
+                f"renderer {tuple(self.state.accum.shape)}"
+            )
+        self.state = state
+        self._host_iteration = state.iteration
+        return self
 
     # ── camera interaction (accumulation reset, `main.cpp:110-136`) ──
 

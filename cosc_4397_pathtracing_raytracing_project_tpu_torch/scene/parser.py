@@ -24,7 +24,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .structs import CUBE, SPHERE, CameraDesc, SceneDesc
+from .structs import CUBE, SPHERE, CameraDesc, Scene, SceneDesc
 from . import transforms
 
 
@@ -315,6 +315,12 @@ def load_scene_desc(path: str) -> SceneDesc:
     with open(path, "r") as f:
         text = f.read()
     return parse_scene(text, base_dir=os.path.dirname(os.path.abspath(path)))
+
+
+def load_scene(path: str, device="cuda") -> Scene:
+    """Parse a scene file and build its tensors on ``device`` (the JAX
+    ``load_scene``, with the device named)."""
+    return Scene.from_desc(load_scene_desc(path), device)
 
 
 def load_obj_triangles(path: str) -> np.ndarray:

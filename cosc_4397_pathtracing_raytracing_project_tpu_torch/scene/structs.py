@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from . import transforms
+
 # Primitive type ids (reference enum GeomType, `src/sceneStructs.h:10-13`)
 CUBE = 0
 SPHERE = 1
@@ -338,3 +340,20 @@ def camera_basis_from_spherical(zoom, phi, theta, lookat):
         up.astype(np.float32),
         right.astype(np.float32),
     )
+
+
+def desc_world_aabbs(desc: SceneDesc):
+    """Per-geom world AABBs (8-corner method, `src/pathtrace.cu:34-50`),
+    extended with exact triangle bounds for mesh scenes: ``(mins, maxs)``,
+    float32 ``(G + T, 3)`` each (the JAX ``desc_world_aabbs``)."""
+    n = desc.num_geoms
+    mins = np.zeros((n, 3), np.float32)
+    maxs = np.zeros((n, 3), np.float32)
+    for i in range(n):
+        mins[i], maxs[i] = transforms.unit_cube_world_aabb(desc.transform[i])
+    if desc.num_triangles:
+        tmins = desc.tri_vertices.min(axis=1)
+        tmaxs = desc.tri_vertices.max(axis=1)
+        mins = np.concatenate([mins, tmins.astype(np.float32)], axis=0)
+        maxs = np.concatenate([maxs, tmaxs.astype(np.float32)], axis=0)
+    return mins, maxs

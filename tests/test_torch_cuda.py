@@ -1354,3 +1354,111 @@ def test_cuda_every_model_renders(model, cuda):
     r.render(2)
     img = r.linear_image()
     assert img.shape == (64, 64, 3) and np.isfinite(img).all() and img.max() > 0.05
+
+
+def exact_ties(scene, o, d):
+    """Which rays' nearest hit on ``scene`` is an exact tie: two primitives
+    at the same distance, or, on a cube, two slab axes entering at the same
+    distance (an edge). Torch on the card may break such a tie in another
+    order than on the CPU."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import intersect as ix
+
+    cand = []
+    if scene.cubes.count:
+        cand.append(ix.cube_candidate_t(scene.cubes, o, d))
+    if scene.spheres.count:
+        cand.append(ix.sphere_candidate_t(scene.spheres, o, d))
+    t, idx = torch.sort(torch.cat(cand, dim=1), dim=1)
+    ties = (t[:, 0] == t[:, 1]) & (t[:, 0] < 1e30)  # 1e30: a miss
+    is_cube = idx[:, 0] < scene.cubes.count
+    inv = scene.cubes.inv_transform[torch.where(is_cube, idx[:, 0], 0)]
+    q_o, q_d = ix._to_object_space(inv, o, d)
+    enter = torch.minimum((-0.5 - q_o) / q_d, (0.5 - q_o) / q_d)
+    top = torch.sort(torch.where(enter > 0, enter, -3.4e38), dim=1, descending=True).values
+    return ties | (is_cube & (top[:, 0] == top[:, 1]) & (top[:, 0] > 0))
+
+
+def test_exact_ties_finds_the_box_edges():
+    """CPU check of the helper: on cornell.txt's center rays the exact ties
+    lie on the box's edges (the image's diagonals), a small share."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render import denoise
+
+    scene = Scene.from_desc(_small(), "cpu")
+    idx = torch.arange(64 * 64)
+    ties = exact_ties(scene, *denoise._center_rays(scene.camera, idx))
+    y, x = idx[ties] // 64, idx[ties] % 64
+    assert 0 < int(ties.sum()) < 64 * 64 // 20
+    assert bool(((y - x).abs() <= 1).logical_or((y + x - 63).abs() <= 1).all())
+
+
+@pytest.mark.cuda
+def test_cuda_denoiser_matches_the_cpu(cuda):
+    """The denoiser on the card against the same code on the CPU, 64×64:
+    the AOV pass (miss masks identical, the rest within 1e-4 but on at most
+    0.5% of pixels, the ROADMAP's share, where torch's float32 sqrt, which
+    rounds some inputs otherwise on the card than on the CPU, moves a
+    grazing hit or an exact tie), and the filter on the same inputs within
+    1e-4."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.intersect import intersect_scene
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render import denoise
+
+    desc = _small()
+    cpu_scene = Scene.from_desc(desc, "cpu")
+    got = denoise.render_aovs(Scene.from_desc(desc, cuda))
+    want = denoise.render_aovs(cpu_scene)
+    assert torch.equal(got.miss.cpu(), want.miss)
+    off = torch.zeros(want.miss.shape, dtype=torch.bool)
+    for g, w in zip(got[:3], want[:3]):
+        d = (g.cpu() - w).abs()
+        off |= (d.amax(dim=-1) if d.dim() == 3 else d) > 1e-4
+    assert float(off.float().mean()) <= 0.005
+    ys, xs = torch.nonzero(off, as_tuple=True)
+    idx = ys * 64 + xs
+    # traced again on the CPU with the card's sqrt, each such pixel gives
+    # the card's AOVs (or is an exact tie)
+    sqrt = torch.sqrt
+    torch.sqrt = lambda x: sqrt(x.to(cuda)).to(x.device)
+    try:
+        hit = intersect_scene(cpu_scene, *denoise._center_rays(cpu_scene.camera, idx))
+    finally:
+        torch.sqrt = sqrt
+    agree = (hit.normal - got.normal.cpu()[ys, xs]).abs().amax(dim=1) <= 1e-4
+    assert bool((agree | exact_ties(cpu_scene, *denoise._center_rays(cpu_scene.camera,
+                                                                     idx))).all())
+    img = np.random.default_rng(5).uniform(0, 2, (64, 64, 3)).astype(np.float32)
+    on_card = denoise.Aovs(*[a.to(cuda) for a in want])
+    out = denoise.atrous_denoise(torch.from_numpy(img).to(cuda), on_card).cpu().numpy()
+    ref = denoise.atrous_denoise(torch.from_numpy(img), want).numpy()
+    assert np.abs(out - ref).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip(cuda, tmp_path):
+    """Save on the card, load into a second renderer on the card (the
+    accumulator lands there), continue: bit for bit."""
+    a = Renderer(_small(), RenderConfig(trace_depth=3, samples_per_launch=2), seed=3, device=cuda)
+    a.step(2)
+    path = a.save_checkpoint(str(tmp_path / "ck"))
+    b = Renderer(_small(), RenderConfig(trace_depth=3, samples_per_launch=2), device=cuda)
+    b.load_checkpoint(path)
+    assert b.state.accum.device == a.state.accum.device and b.state.seed == a.state.seed
+    a.step(2)
+    b.step(2)
+    assert torch.equal(a.state.accum, b.state.accum)
+
+
+@pytest.mark.cuda
+def test_cuda_cli_default_device(cuda, tmp_path):
+    """The command line with its default device renders on the card."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import read_png
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.utils import cli
+
+    scene = tmp_path / "scene.txt"
+    scene.write_text(_scene_text("cornell.txt"))
+    out = tmp_path / "out.png"
+    tmk.KERNEL.reset_counts()
+    rc = cli.main([str(scene), "--depth", "3", "--iterations", "4", "--chunk", "2", "--denoise",
+                   "--output", str(out), "--checkpoint", str(tmp_path / "ck"), "--quiet"])
+    assert rc == 0 and tmk.KERNEL.launches > 0
+    img = read_png(str(out))
+    assert img.shape == (64, 64, 3) and img.max() > 0
