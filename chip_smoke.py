@@ -153,7 +153,29 @@ Phases, in order; any failure raises and exits non-zero:
    (median of 5 after a warm-up), of render_aovs on mesh1080p at 1920x1080
    (median of 3, warmed by (e)), and profile_pipeline on cornell.txt; (g) the preview server on the card:
    two frames, an orbit that resets the iteration, the denoise toggle's
-   frame; and the phase's time; then one JSON
+   frame; and the phase's time;
+25. multi-device rendering (parallel/), every rank a process on this one
+   card (gloo; NCCL refuses two ranks on one card), so no rays/s of the
+   phase is a scaling number: (a) the megakernel on a slice of the frame
+   (the second dp rank's half of 800x800, its hash tiles from 157) against
+   its plain version for main, NEE, env exact, env NEE and split (bit for
+   bit without NEE), and the counting build on the main slice against the
+   emulation; (b) cornell.txt 800x800, depth 8, sobol, one 200-sample step
+   through make_sharded_pallas_step at world 2 (sp=1, dp=2) and world 4
+   (sp=2, dp=2), and golden at 1000 spp through the world-4 step (PSNR
+   floor 34.0 dB); (c) cornell.txt at 1024x800 (TILE-aligned slices), 8
+   spp: sp=1 bit for bit the single device, sp=2 within rtol 1e-5, atol
+   1e-6; (d) mesh1080p at 1920x1080, 4 spp, dp=2, with and without NEE,
+   against the single device (the kernel-vs-plain bound); (e) the fast step
+   with env NEE on env_spheres.txt at sp=2, dp=2, 32 spp: mean within 5%,
+   correlation above 0.95 against the single device; (f) golden NEE
+   adaptive (warm-up and two rounds) at world 2 against the unsharded
+   renderer (the kernel-vs-plain bound; selections printed); (g) (b)'s step
+   over NCCL at world size torch.cuda.device_count(); (h) the dry run
+   (parallel.dryrun.dryrun_multichip, four ranks). Each leg prints its
+   backend, world size, time and rays/s, and every rank's launches of the
+   leg's kernel in its timed run (counts set to 0 just before it), which
+   must be above 0; then one JSON
    line describing each ported kernel (K6's times and bound are the
    round's; K7's and K8's are the sums over one mesh pipeline sample's
    launches, whose count 'launches_per_sample' gives; K7's
@@ -165,8 +187,12 @@ after; a leg whose kernel variant was never launched fails. Phases 1-15 are
 the megakernel's (kernels K1-K6), 16-18 the mesh pipeline's (K7, K8), 20-23
 the eager pipelines' (K1 through the megakernel model, K7 through the
 reference pipeline's BVH), 24 the command line's (K1, K2 and K6 through its
-subprocesses; the launches of its library and server runs are read here). It needs a CUDA device and the repository's
-files: without either it fails before printing any result.
+subprocesses; the launches of its library and server runs are read here),
+25 the multi-device paths' (K1-K6 through the sharded megakernel step and
+the tile-sharded adaptive dispatch, K7/K8 through the sharded mesh step;
+each rank process reports its own launches). It needs a CUDA device and
+the repository's files: without either it fails before printing any
+result.
 """
 
 import contextlib
@@ -347,6 +373,31 @@ CLI_TIMEOUT = 600
 # the first after the warm-up (every tile at 32 samples a buffer), on the
 # 81 tiles a round takes (a quarter of 325), here every fourth: the tiles a
 # round picks by their noise vary by render.
+# phase 25, multi-device rendering: ranks are processes that share the one
+# card over gloo (NCCL refuses two ranks on one card) and, at the card count,
+# over NCCL. The slice the kernel checks render: the second dp rank's half of
+# 800x800 (no TILE boundary at 320,000) on a tile base of its own
+MD_SLICE = (320000, 320000, 157)
+MD_STEP_SPP = 200  # the main path's samples a step (samples_per_launch=200)
+MD_ALIGNED_RES = (1024, 800)  # 819,200 px: 400 tiles, 200 a dp rank of two
+MD_ALIGNED_SPP = 8
+MD_MESH_SPP = 4
+MD_FAST_SPP = 32
+MD_GOLDEN_SPP = 1000
+MD_ADAPTIVE = dict(warmup=16, rounds=[(16, 0.25), (16, 0.25)])
+MD_TIMEOUT = 600
+# the fast step (env NEE, as tests/test_parallel.py's env NEE case: without
+# it the meadow sun's fireflies, ~0.1% of pixels at 200x the mean, decide
+# the correlation) against the single device: that test's bounds (a dp
+# rank's streams are folded from its own key: another noise realisation).
+# The correlation measured 0.9969 at 96 spp on an H100 (0.86 at 16 spp on
+# the CPU at 64x64); at 32 spp it should be about 0.99
+MD_FAST_MEAN_RTOL = 0.05
+MD_FAST_CORR = 0.95
+# sp = 2 adds two half-sums: tests/test_parallel.py:140's bound
+MD_SP_RTOL = 1e-5
+MD_SP_ATOL = 1e-6
+
 ADAPTIVE_TILES = 325
 ADAPTIVE_DISPATCH = {
     "warmup": (tuple(range(ADAPTIVE_TILES)), 32, 1, 33),
@@ -1147,6 +1198,230 @@ def _aovs_agree(what, got, want, scene_cpu):
           f"{AOV_TOL}) but on {n_off} "
           f"pixels (bound {ORACLE_SHARE} of {off.numel()}), each reproduced on the CPU with the "
           f"card's sqrt, or an exact tie")
+
+
+def _rank_legs(what, results, rays, backend, sp):
+    """Print a sharded leg's backend, world size, time and rays/s (``rays``
+    primary samples over the slowest rank's time) and return rank 0's
+    result; every rank must hold the same frame."""
+    if len({str(r["digest"]) for r in results}) != 1:
+        raise AssertionError(f"{what}: the ranks hold different results")
+    seconds = max(r["seconds"] for r in results)
+    world = len(results)
+    print(f"  {what}: {backend}, world {world} (sp={sp}, dp={world // sp}), "
+          f"{seconds:.4f} s, {rays / seconds:.6e} rays/s (ranks share one card)")
+    return results[0]
+
+
+def _launched(what, results, kernel, key):
+    """Every rank launched ``kernel``'s ``key`` in its timed run (counts set
+    to 0 just before it)."""
+    counts = [r["launches"][kernel].get(key, 0) for r in results]
+    print(f"  {what}: {kernel} {key!r} launches by rank {counts}")
+    if min(counts) <= 0:
+        raise AssertionError(f"{what}: a rank never launched {kernel} {key!r}")
+
+
+def _multi_device_phase(device, seed, scene_path, ref_img, smi):
+    """Phase 25: multi-device rendering (parallel/) on the card."""
+    import numpy as np
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
+        AdaptiveRenderer,
+        RenderConfig,
+        RenderState,
+        Scene,
+        load_scene_desc,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.lights import make_light_sampler
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.parallel import spawn_ranks
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+        run_cases,
+        scene_desc,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import (
+        make_mesh_step,
+        make_pallas_step,
+        render_chunk,
+    )
+
+    t_phase = time.perf_counter()
+    print(f"[25] multi-device rendering ({smi}): every rank a process on this one card, so "
+          f"no rays/s here is a scaling number")
+    # (a) the kernel on a slice of the frame against its plain version
+    offset, n, tile_base = MD_SLICE
+    scenes = {}
+    for case, name, cfg in (
+        ("main", "cornell.txt", RenderConfig(sampler="sobol")),
+        ("nee", "cornell_golden.txt", RenderConfig(nee=True, antialias=True, sampler="sobol")),
+        ("env exact", "env_spheres.txt", RenderConfig(sampler="sobol")),
+        ("env nee", "env_spheres.txt", RenderConfig(nee=True)),
+        ("split", "env_spheres.txt", RenderConfig(env_mode="split")),
+    ):
+        if name not in scenes:
+            scenes[name] = Scene.from_desc(load_scene_desc(scene_path(name)), device)
+        sc = scenes[name]
+        opts = mk.kernel_options(cfg, sc)
+        pk = mk.pack_scene(sc, nee=opts.nee, config=cfg)
+        got = mk.render_samples(sc, cfg, seed, 3, 2, packed=pk, pixel_offset=offset,
+                                num_pixels=n, tile_base=tile_base)
+        pix = offset + torch.arange(n, device=device)
+        stats = {} if case == "main" else None
+        want = mk._add_background(
+            mk.render_samples_reference(pix, pk, opts, seed, 3, 2, stats=stats,
+                                        tile_base=tile_base), pk, opts, 2, offset)
+        torch.cuda.synchronize()
+        _check_close(got, want, f"(a) {case} [{mk.variant_name(opts)}], pixels {offset} .. "
+                     f"{offset + n - 1}, tiles from {tile_base}, 2 spp")
+        if not opts.nee and not torch.equal(got, want):
+            raise AssertionError(f"(a) {case}: a variant without NEE differs from its plain "
+                                 f"version")
+        if case == "main":
+            counted, owners = mk.kernel_warp_work(pk, opts, seed, 3, 2, device,
+                                                  pixel_offset=offset, num_pixels=n,
+                                                  tile_base=tile_base)
+            steps, draws = mk.path_lengths(stats)
+            em = mk.warp_schedule(steps, draws, mk.SCHEDULE, **mk.schedule_args(opts),
+                                  owners=owners, vis=mk.path_visibility(stats), width=pk.width,
+                                  pixel_offset=offset)
+            print(f"  (a) main slice, counting build {counted}; emulation equal "
+                  f"{counted == {k: em[k] for k in mk.WORK}}; spread {em['spread']}")
+            if counted != {k: em[k] for k in mk.WORK}:
+                raise AssertionError("(a) the counting build on a slice differs from the "
+                                     "emulation")
+
+    main_cfg = RenderConfig(sampler="sobol")
+    cornell = dict(scene=scene_path("cornell.txt"))
+    aligned = dict(scene=scene_path("cornell.txt"), resolution=MD_ALIGNED_RES)
+    mesh_scene = dict(scene=scene_path("mesh1080p.txt"))
+    mesh_cfg = RenderConfig(sky_strength=1.0)
+    step = lambda pipeline, sc, cfg, spp, sp, **kw: dict(  # noqa: E731
+        kind="step", pipeline=pipeline, scene=sc, config=cfg, samples=spp, sp=sp, seed=seed, **kw)
+    groups = {
+        ("gloo", 2, 1): {
+            "cornell": step("pallas", cornell, main_cfg, MD_STEP_SPP, 1, warmup=1),
+            "aligned": step("pallas", aligned, main_cfg, MD_ALIGNED_SPP, 1),
+            "mesh": step("mesh", mesh_scene, mesh_cfg, MD_MESH_SPP, 1),
+            "mesh nee": step("mesh", mesh_scene, dataclasses.replace(mesh_cfg, nee=True),
+                             MD_MESH_SPP, 1),
+            "adaptive": dict(kind="adaptive", scene=dict(scene=scene_path("cornell_golden.txt")),
+                             config=RenderConfig(nee=True, sampler="sobol"), seed=seed,
+                             **MD_ADAPTIVE),
+        },
+        ("gloo", 4, 2): {
+            "cornell": step("pallas", cornell, main_cfg, MD_STEP_SPP, 2, warmup=1),
+            "golden": step("pallas", dict(scene=scene_path("cornell_golden.txt")),
+                           RenderConfig(antialias=True, sampler="sobol"), MD_GOLDEN_SPP, 2),
+            "aligned": step("pallas", aligned, main_cfg, MD_ALIGNED_SPP, 2),
+            "fast": step("fast", dict(scene=scene_path("env_spheres.txt")),
+                         RenderConfig(nee=True), MD_FAST_SPP, 2),
+        },
+        ("nccl", torch.cuda.device_count(), 1): {
+            "cornell": step("pallas", cornell, main_cfg, MD_STEP_SPP, 1, warmup=1),
+        },
+    }
+    out = {}
+    for (backend, world, sp), cases in groups.items():
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(run_cases, world, backend, device, args=(sp, list(cases.values())),
+                            timeout=MD_TIMEOUT)
+        print(f"  {backend} group of {world} ranks: {time.perf_counter() - t0:.1f} s with "
+              f"the ranks' start")
+        for i, name in enumerate(cases):
+            out[(backend, world, name)] = [r[i] for r in ranks]
+
+    def fresh(scene):
+        return RenderState.create(scene.camera.pixel_count, seed, device)
+
+    # (b) the main path's step: cornell.txt 800x800, depth 8, sobol
+    for key in (("gloo", 2, "cornell"), ("gloo", 4, "cornell"),
+                ("nccl", torch.cuda.device_count(), "cornell")):
+        sp = 2 if key[1] == 4 else 1
+        pixels = out[key][0]["accum"].shape[0]
+        res = _rank_legs(f"(b) cornell.txt sobol, {MD_STEP_SPP} spp"
+                         + (" (g: NCCL)" if key[0] == "nccl" else ""),
+                         out[key], pixels * MD_STEP_SPP, key[0], sp)
+        _launched("(b)", out[key], "megakernel", "main")
+        img = res["accum"]
+        if not bool(torch.isfinite(img).all()) or not float(img.mean()) > 0:
+            raise AssertionError(f"{key}: the sharded main path's image is not finite or black")
+    accum = out[("gloo", 4, "golden")][0]["accum"]
+    res = _rank_legs(f"(b) golden: cornell_golden.txt, antialias, sobol, {MD_GOLDEN_SPP} spp",
+                     out[("gloo", 4, "golden")], accum.shape[0] * MD_GOLDEN_SPP, "gloo", 2)
+    psnr = _golden_psnr((accum / MD_GOLDEN_SPP).numpy().reshape(ref_img.shape), ref_img)
+    print(f"  (b) golden through the world-4 step: {psnr:.4f} dB (floor {PSNR_FLOOR_1000})")
+    if not psnr >= PSNR_FLOOR_1000:
+        raise AssertionError("(b) golden PSNR through the sharded step below its floor")
+
+    # (c) the TILE-aligned frame: sp = 1 bit for bit, sp = 2 within rtol
+    sc = Scene.from_desc(scene_desc(aligned), device)
+    single = make_pallas_step()(sc, fresh(sc), main_cfg, MD_ALIGNED_SPP).accum.cpu()
+    pixels = MD_ALIGNED_RES[0] * MD_ALIGNED_RES[1]
+    got1 = _rank_legs("(c) 1024x800 aligned", out[("gloo", 2, "aligned")],
+                      pixels * MD_ALIGNED_SPP, "gloo", 1)["accum"]
+    got2 = _rank_legs("(c) 1024x800 aligned", out[("gloo", 4, "aligned")],
+                      pixels * MD_ALIGNED_SPP, "gloo", 2)["accum"]
+    gap = float(((got2 - single).abs() - MD_SP_RTOL * single.abs()).max())
+    print(f"  (c) sp=1 bit for bit the single device: {torch.equal(got1, single)}; sp=2 max "
+          f"|d| - rtol|want| {gap:.3e} (atol {MD_SP_ATOL})")
+    if not torch.equal(got1, single):
+        raise AssertionError("(c) the sp=1 step on TILE-aligned slices differs from the "
+                             "single device")
+    if not torch.allclose(got2, single, rtol=MD_SP_RTOL, atol=MD_SP_ATOL):
+        raise AssertionError("(c) the sp=2 step differs from the single device past its bound")
+
+    # (d) mesh1080p, dp = 2, with and without NEE
+    sc = Scene.from_desc(scene_desc(mesh_scene), device)
+    for name, cfg in (("mesh", mesh_cfg), ("mesh nee", dataclasses.replace(mesh_cfg, nee=True))):
+        sampler = make_light_sampler(sc) if cfg.nee else None
+        single = make_mesh_step(sc, sampler)(sc, fresh(sc), cfg, MD_MESH_SPP).accum
+        res = _rank_legs(f"(d) {name}: mesh1080p, {MD_MESH_SPP} spp",
+                         out[("gloo", 2, name)], sc.camera.pixel_count * MD_MESH_SPP, "gloo", 1)
+        _launched(f"(d) {name}", out[("gloo", 2, name)], "mesh", "full")
+        if cfg.nee:
+            _launched(f"(d) {name}", out[("gloo", 2, name)], "mesh", "tmin")
+        _check_close(res["accum"].to(device), single, f"(d) {name} sharded vs single device")
+
+    # (e) the fast step on env_spheres, sp = 2, dp = 2
+    sc = Scene.from_desc(scene_desc(dict(scene=scene_path("env_spheres.txt"))), device)
+    single = (render_chunk(sc, fresh(sc), RenderConfig(nee=True), MD_FAST_SPP).accum.cpu()
+              / MD_FAST_SPP)
+    res = _rank_legs(f"(e) fast, env NEE: env_spheres.txt, {MD_FAST_SPP} spp",
+                     out[("gloo", 4, "fast")], sc.camera.pixel_count * MD_FAST_SPP, "gloo", 2)
+    got = res["accum"] / MD_FAST_SPP
+    rel = abs(float(got.mean()) - float(single.mean())) / float(single.mean())
+    corr = float(np.corrcoef(got.mean(-1).numpy(), single.mean(-1).numpy())[0, 1])
+    print(f"  (e) mean rel gap {rel:.4e} (bound {MD_FAST_MEAN_RTOL}), correlation {corr:.4f} "
+          f"(bound {MD_FAST_CORR})")
+    if not (rel < MD_FAST_MEAN_RTOL and corr > MD_FAST_CORR):
+        raise AssertionError("(e) the sharded fast step disagrees with the single device")
+
+    # (f) golden NEE adaptive at world 2 against the unsharded renderer
+    spec = groups[("gloo", 2, 1)]["adaptive"]
+    ref = AdaptiveRenderer(scene_desc(spec["scene"]), spec["config"], seed=seed, device=device)
+    ref.warmup(spec["warmup"])
+    sels = [ref.refine(spp, frac).cpu() for spp, frac in spec["rounds"]]
+    res = _rank_legs("(f) adaptive golden NEE: warm-up and rounds (lanes x samples dispatched)",
+                     out[("gloo", 2, "adaptive")], ref._lane_budget_spent, "gloo", 1)
+    if res["lanes"] != ref._lane_budget_spent:
+        raise AssertionError("(f) the sharded renderer dispatched other work than the unsharded")
+    _launched("(f)", out[("gloo", 2, "adaptive")], "megakernel", "nee+tiles")
+    same = all(a.tolist() == b.tolist() for r in out[("gloo", 2, "adaptive")]
+               for a, b in zip(r["selections"], sels))
+    print(f"  (f) selections equal to the unsharded renderer's: {same}")
+    _check_close(torch.from_numpy(np.ascontiguousarray(res["image"])).reshape(-1, 3),
+                 torch.from_numpy(ref.linear_image()).reshape(-1, 3),
+                 "(f) sharded adaptive image vs unsharded")
+
+    # (h) the dry run
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, "gloo", device)
+    print(f"  (h) dry run: {time.perf_counter() - t0:.1f} s; phase [25] "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return dry
 
 
 def _cli_phase(device, seed, scene_path, ref_img, smi):
@@ -2081,6 +2356,7 @@ def main() -> int:
 
     k7_reference = _pipeline_phases(device, seed, scene_path, ref_img, smi)
     _cli_phase(device, seed, scene_path, ref_img, smi)
+    _multi_device_phase(device, seed, scene_path, ref_img, smi)
     print(f"  peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

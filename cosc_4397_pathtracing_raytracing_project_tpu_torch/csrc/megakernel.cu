@@ -50,6 +50,11 @@
 // ENV excludes LEGACY; exact (1, 2) excludes analytic NEE; env NEE (2) and
 // split (3) exclude TILES.
 //
+// A launch without TILES renders a contiguous slice of the flat pixel array
+// (the multi-device pixel tiling, parallel/shard.py): pixel p of the slice is
+// global pixel pixel_offset + p (its LD lattice key and coordinates), and its
+// hash stream is lane p % tile of tile tile_base + p / tile.
+//
 // Output: out[p*3 + c] = sum over samples iter_base .. iter_base+num_samples-1
 // (ascending, f32) of the path radiance of pixel p (of its terminal
 // throughput with LEGACY). The kernel writes the [N,3] buffer the wrapper
@@ -312,6 +317,8 @@ struct Options {
   int height;
   uint32_t seed;
   int iter_base;
+  int pixel_offset;  // global id of the slice's first pixel (0 with TILES)
+  int tile_base;     // hash tile of the slice's first pixel (0 with TILES)
   int tile;
   int num_samples;
   int trace_depth;
@@ -1261,8 +1268,8 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
           iter_base = ta.tiles[ta.k + g];
           prng.lane = (uint32_t)(p % o.tile);
         } else {
-          pid = (uint32_t)p;
-          tile_id = (uint32_t)(p / o.tile);
+          pid = (uint32_t)(o.pixel_offset + p);
+          tile_id = (uint32_t)(o.tile_base + p / o.tile);
           iter_base = o.iter_base;
           prng.lane = (uint32_t)(p % o.tile);
         }
@@ -1302,8 +1309,8 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
             fx = ta.px[p];
             fy = ta.py[p];
           } else {
-            fx = (float)(p % o.width);
-            fy = (float)(p / o.width);
+            fx = (float)((int)pid % o.width);
+            fy = (float)((int)pid / o.width);
           }
           if (hoisted) {
             raygen(o, sc, fx, fy, &bdx, &bdy, &bdz);
@@ -2013,7 +2020,9 @@ extern "C" int pt_megakernel_blocks_per_sm(int flags, int smem) {
 // code (0 = launched). Host pointers, read before this returns: cam[16],
 // geo[num_geoms*21], mats[num_materials*10], gmat[num_geoms],
 // perm[num_geoms*3], lights[num_lights*26], light_ids[num_lights*2]
-// (kind, material), suns[num_suns*6], sh[27]. Device pointers, with
+// (kind, material), suns[num_suns*6], sh[27]. Without tiles the launch
+// renders the n pixels pixel_offset .. pixel_offset+n-1 of the frame, their
+// hash tiles numbered from tile_base (both 0 with tiles). Device pointers, with
 // num_tiles > 0 (then n = num_tiles * tile): tiles[2*num_tiles], px[n],
 // py[n], and with group < num_samples (a divisor of it: the samples of a
 // queue item) units[num_samples*n*3] (*6 with env_mode 1), which the kernel
@@ -2027,8 +2036,8 @@ extern "C" int pt_megakernel_blocks_per_sm(int flags, int smem) {
 // queue's, n or n * num_samples / group) are the counting build's and null in
 // any other.
 extern "C" int pt_megakernel_launch(
-    float* out, int n, int width, int height, int seed, int iter_base,
-    int tile, int num_samples, int trace_depth,
+    float* out, int n, int width, int height, int seed, int iter_base, int pixel_offset,
+    int tile_base, int tile, int num_samples, int trace_depth,
     int rr_start_depth, int antialias, int use_ld, int n_ld, float sky_strength,
     int nee, int refraction, int dof, int legacy,
     const float* cam, const float* geo, const float* mats, const int* gmat,
@@ -2044,6 +2053,9 @@ extern "C" int pt_megakernel_launch(
       (nee && legacy) || (nee && (num_lights <= 0 || num_lights > PT_MAX_LIGHTS || !lights ||
                                   !light_ids)) ||
       num_tiles < 0 || (num_tiles > 0 && (!tiles || !px || !py || n != num_tiles * tile)) ||
+      pixel_offset < 0 || tile_base < 0 ||
+      (num_tiles > 0 && (pixel_offset != 0 || tile_base != 0)) ||
+      (num_tiles == 0 && (long long)pixel_offset + n > (long long)width * height) ||
       (num_tiles > 0 && num_samples > 0 &&
        (group <= 0 || group > num_samples || num_samples % group != 0 ||
         (group < num_samples && (!units || (long long)n * num_samples > 0x7fffffffLL)))) ||
@@ -2104,6 +2116,8 @@ extern "C" int pt_megakernel_launch(
   o.height = height;
   o.seed = (uint32_t)seed;
   o.iter_base = iter_base;
+  o.pixel_offset = pixel_offset;
+  o.tile_base = tile_base;
   o.tile = tile;
   o.num_samples = num_samples;
   o.trace_depth = trace_depth;

@@ -1554,12 +1554,13 @@ def render_samples_reference(
     num_samples: int,
     stats: Optional[dict] = None,
     env_rows: Optional[torch.Tensor] = None,
+    tile_base: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel over the flat pixel array.
 
     ``pixel_ids`` [N] int64 are the global pixel ids ``py·W + px`` of the
     rendered pixels, in order; pixel i of the array draws its hash stream as
-    lane ``i % tile`` of tile ``i // tile``. Returns the [N, 3]
+    lane ``i % tile`` of tile ``tile_base + i // tile``. Returns the [N, 3]
     f32 radiance sum over iterations ``iter_base .. iter_base+num_samples-1``,
     accumulated in ascending iteration order. ``stats``, if given, receives
     the work counts of :func:`_trace_batch`. Env NEE's rows for these
@@ -1571,7 +1572,7 @@ def render_samples_reference(
         fx=(p % packed.width).to(torch.float32),
         fy=(p // packed.width).to(torch.float32),
         lane=pos % opts.tile,
-        tile_id=pos // opts.tile,
+        tile_id=int(tile_base) + pos // opts.tile,
         iter_base=int(iter_base),
     )
     return _render_reference(packed, opts, seed, px, num_samples, stats, env_rows)
@@ -1662,6 +1663,7 @@ def warp_schedule(
     vis: Optional[dict] = None,
     group: Optional[int] = None,
     width: Optional[int] = None,
+    pixel_offset: int = 0,
 ) -> dict:
     """Emulate the kernel's warps on the plain version's path lengths
     (:func:`path_lengths`; ``steps``/``draws`` [S, N] by sample and by the
@@ -1719,7 +1721,8 @@ def warp_schedule(
     it was served (``visits``), its samples settled (``samples``) and
     whether every pixel's samples settled in ascending order
     (``in_order``). With the frame's ``width`` (items in the kernel's pixel
-    order, row-major), ``spread`` is how far apart a warp's pixels lie: the
+    order, row-major, from global pixel ``pixel_offset`` for a launch over a
+    slice of the frame), ``spread`` is how far apart a warp's pixels lie: the
     mean, over the warp iterations with an active lane, of the bounding box
     of the pixels its lanes hold, as (columns, rows), and ``spread_area`` the
     mean of its area (a thread per pixel: 32 x 1 where 32 divides the
@@ -1744,8 +1747,8 @@ def warp_schedule(
         spread = area = None
         if width is not None:
             # a warp holds its 32 consecutive pixels throughout
-            first = np.arange(0, n, 32)
-            last = np.minimum(first + 31, n - 1)
+            first = pixel_offset + np.arange(0, n, 32)
+            last = np.minimum(first + 31, pixel_offset + n - 1)
             rows = last // width - first // width + 1
             cols = np.where(rows == 1, last - first + 1, width)
             w = by_warp / max(iters, 1)
@@ -1865,7 +1868,7 @@ def warp_schedule(
         iters += int(busy.sum())
         warp_busy += busy
         if width is not None:
-            r, c = pix // width, pix % width
+            r, c = (pix + pixel_offset) // width, (pix + pixel_offset) % width
             big = np.iinfo(np.int64).max
             rows = (np.where(held, r, -1).max(axis=1) - np.where(held, r, big).min(axis=1) + 1)
             cols = (np.where(held, c, -1).max(axis=1) - np.where(held, c, big).min(axis=1) + 1)
@@ -1994,7 +1997,7 @@ class Megakernel:
             fn.restype = ctypes.c_int
             i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
             fn.argtypes = [
-                p, i, i, i, i, i, i, i, i, i, i, i, i, f,  # output, frame, sampling
+                p, i, i, i, i, i, i, i, i, i, i, i, i, i, i, f,  # output, frame, slice, sampling
                 i, i, i, i,  # nee, refraction, dof, legacy
                 p, p, p, p, p, i, i, i,  # scene tables
                 p, p, i,  # light table
@@ -2079,9 +2082,14 @@ class Megakernel:
         work: Optional[torch.Tensor] = None,
         owners: Optional[torch.Tensor] = None,
         group: Optional[int] = None,
+        pixel_offset: int = 0,
+        num_pixels: Optional[int] = None,
+        tile_base: Optional[int] = None,
     ) -> torch.Tensor:
-        """Launch over the full frame, or with ``tiles = (table, px, py)``
-        over K chosen tiles: ``table`` int32 [2K] (K tile ids, then K
+        """Launch over the pixels ``pixel_offset .. pixel_offset +
+        num_pixels - 1`` of the frame (all of it by default), their hash
+        tiles numbered from ``tile_base`` (default ``pixel_offset // tile``),
+        or with ``tiles = (table, px, py)`` over K chosen tiles: ``table`` int32 [2K] (K tile ids, then K
         1-based iteration bases) and ``px``/``py`` f32 [K·tile], all on
         ``device``. The tile dispatch's queue items are (pixel, ``group``
         samples) pairs, ``group`` a divisor of ``num_samples`` that
@@ -2118,11 +2126,13 @@ class Megakernel:
                 raise ValueError("nee: the packed scene carries no light table")
             lights_f, lights_i = packed.lights.packed()
             num_lights = packed.lights.count
-        n = packed.width * packed.height
+        n, tile_base = pixel_slice(packed, opts, pixel_offset, num_pixels, tile_base)
         table = px = py = None
         num_tiles = 0
         items = n
         if tiles is not None:
+            if pixel_offset or num_pixels is not None or tile_base:
+                raise ValueError("the tile dispatch takes no pixel slice")
             table, px, py = tiles
             num_tiles = table.shape[0] // 2
             n = num_tiles * opts.tile
@@ -2192,7 +2202,7 @@ class Megakernel:
             self.launches_by_variant[key] = self.launches_by_variant.get(key, 0) + 1
             err = fn(
                 out.data_ptr(), n, packed.width, packed.height,
-                kernel_seed(seed), int(iter_base), opts.tile,
+                kernel_seed(seed), int(iter_base), int(pixel_offset), int(tile_base), opts.tile,
                 int(num_samples), opts.trace_depth, opts.rr_start_depth,
                 int(opts.antialias), int(opts.use_ld), opts.n_ld,
                 opts.sky_strength,
@@ -2293,7 +2303,7 @@ def kernel_warp_work(packed: PackedScene, opts: KernelOptions, seed: int, iter_b
     each chunk of 32 queue items (int32 [ceil(items/32)]), for
     :func:`warp_schedule`."""
     tiles = kwargs.get("tiles")
-    n = packed.width * packed.height
+    n = pixel_slice(packed, opts, kwargs.get("pixel_offset", 0), kwargs.get("num_pixels"))[0]
     if tiles is not None:
         group = kwargs.setdefault("group", tile_group(tiles[1].shape[0], num_samples, device))
         n = tiles[1].shape[0] * (num_samples // group)
@@ -2304,15 +2314,34 @@ def kernel_warp_work(packed: PackedScene, opts: KernelOptions, seed: int, iter_b
     return dict(zip(WORK, (int(v) for v in work.tolist()))), owners.cpu().numpy()
 
 
+def pixel_slice(packed: PackedScene, opts: KernelOptions, pixel_offset: int = 0,
+                num_pixels: Optional[int] = None, tile_base: Optional[int] = None
+                ) -> Tuple[int, int]:
+    """The pixel count and first hash tile of the slice of ``num_pixels``
+    pixels from ``pixel_offset`` (to the frame's end by default; hash tiles
+    from ``pixel_offset // tile`` by default); ValueError if it is not a
+    slice of the frame."""
+    frame = packed.width * packed.height
+    n = frame - pixel_offset if num_pixels is None else int(num_pixels)
+    if tile_base is None:
+        tile_base = pixel_offset // opts.tile
+    if pixel_offset < 0 or n < 0 or pixel_offset + n > frame or tile_base < 0:
+        raise ValueError(f"pixels {pixel_offset} .. {pixel_offset + n - 1} (tile base "
+                         f"{tile_base}) are not a slice of the {frame}-pixel frame")
+    return n, int(tile_base)
+
+
 def _add_background(rad: torch.Tensor, packed: PackedScene, opts: KernelOptions,
-                    num_samples: int) -> torch.Tensor:
+                    num_samples: int, pixel_offset: int = 0) -> torch.Tensor:
     """Split mode's exact background (the JAX ``_render_samples_impl``
     composite): ``num_samples`` times the bilinear background of each primary
-    ray that misses every primitive, added outside the kernel."""
+    ray that misses every primitive, added outside the kernel, for the
+    ``rad.shape[0]`` pixels from ``pixel_offset``."""
     if not opts.bg_external:
         return rad
     env = packed.env
-    return rad + float(num_samples) * env.bg * env.bg_miss[:, None]
+    rows = slice(pixel_offset, pixel_offset + rad.shape[0])
+    return rad + float(num_samples) * env.bg[rows] * env.bg_miss[rows, None]
 
 
 def render_samples(
@@ -2323,11 +2352,20 @@ def render_samples(
     num_samples: int,
     packed: Optional[PackedScene] = None,
     env_rows: Optional[torch.Tensor] = None,
+    pixel_offset: int = 0,
+    num_pixels: Optional[int] = None,
+    tile_base: Optional[int] = None,
 ) -> torch.Tensor:
-    """Render ``num_samples`` samples of the full frame in one launch.
+    """Render ``num_samples`` samples of the frame in one launch, or of its
+    ``num_pixels`` pixels from ``pixel_offset`` (a contiguous slice of the
+    flat pixel array: the multi-device pixel tiling, ``parallel.shard``).
 
     Returns the [N, 3] radiance *sum* over iterations ``iter_base ..
     iter_base+num_samples-1`` (the caller adds it to its accumulator).
+    Pixel i of a slice is global pixel ``pixel_offset + i`` (its LD lattice
+    key and coordinates); its hash stream is lane ``i % TILE`` of tile
+    ``tile_base + i // TILE``, ``tile_base`` by default
+    ``pixel_offset // TILE`` (the JAX ``render_samples``).
     ``seed`` is the int32 kernel seed; the module's ``TILE`` keys the hash
     streams. ``packed`` (from ``pack_scene(scene, nee=opts.nee,
     config=config)``) saves re-reading the scene tables on every call, and
@@ -2341,20 +2379,23 @@ def render_samples(
     opts = kernel_options(config, scene, packed)
     if packed is None:
         packed = pack_scene(scene, nee=opts.nee, config=config)
-    n = packed.width * packed.height
-    if opts.use_ld and n >= 1 << 24:
+    frame = packed.width * packed.height
+    if opts.use_ld and frame >= 1 << 24:
         raise ValueError("sampler='sobol' supports at most 2^24 pixels")
+    n, tile_base = pixel_slice(packed, opts, pixel_offset, num_pixels, tile_base)
     device = scene.device
     if device.type == "cuda":
-        rad = KERNEL(packed, opts, seed, iter_base, num_samples, device, env_rows=env_rows)
+        rad = KERNEL(packed, opts, seed, iter_base, num_samples, device, env_rows=env_rows,
+                     pixel_offset=pixel_offset, num_pixels=n, tile_base=tile_base)
     elif device.type == "cpu":
-        pix = torch.arange(n, dtype=torch.int64, device=device)
+        pix = pixel_offset + torch.arange(n, dtype=torch.int64, device=device)
         rad = render_samples_reference(
-            pix, packed, opts, seed, iter_base, num_samples, env_rows=env_rows
+            pix, packed, opts, seed, iter_base, num_samples, env_rows=env_rows,
+            tile_base=tile_base,
         )
     else:
         raise ValueError(f"unsupported device {device}")
-    return _add_background(rad, packed, opts, num_samples)
+    return _add_background(rad, packed, opts, num_samples, pixel_offset)
 
 
 def check_tiles_env(scene, config) -> None:

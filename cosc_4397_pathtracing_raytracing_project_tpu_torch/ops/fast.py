@@ -264,13 +264,14 @@ def _thin_lens_soa(cam, ox, oy, oz, dx, dy, dz, u1, u2):
     return ox, oy, oz, ndx * rn, ndy * rn, ndz * rn
 
 
-def trace_sample_fast(scene, config, seed: int, iteration: int, pixel_offset: int = 0,
+def trace_sample_fast(scene, config, seed, iteration: int, pixel_offset: int = 0,
                       num_pixels: Optional[int] = None, light_sampler=None) -> torch.Tensor:
     """One sample of pixels [pixel_offset, pixel_offset + N) of an analytic
     scene (the JAX ``trace_sample_fast``): raygen, the bounce loop, and the
     [N, 3] radiance (light_only) or terminal throughput (throughput mode).
-    ``seed`` is the render seed (the JAX ``base_key`` is ``PRNGKey(seed)``),
-    ``iteration`` the 1-based sample index.
+    ``seed`` is the JAX ``base_key``: a key ``(k0, k1)``, or the render seed
+    as the shorthand for ``PRNGKey(seed)`` (``ops.rng.as_key``);
+    ``iteration`` is the 1-based sample index.
 
     With ``config.nee``, a ``light_sampler`` (``ops.lights.make_light_sampler``)
     adds area-light NEE and a scene map (``scene.envmap``) environment NEE;
@@ -659,17 +660,17 @@ def _block_order_on(w: int, h: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_block_order(w, h), device=device).to(torch.int64)
 
 
-def trace_sample_mesh(scene, config, seed: int, iteration: int, cluster_isect,
+def trace_sample_mesh(scene, config, seed, iteration: int, cluster_isect,
                       pixel_offset: int = 0, num_pixels: Optional[int] = None,
                       light_sampler=None) -> torch.Tensor:
     """One sample of every pixel of a triangle-mesh scene: the [N, 3]
     radiance (light_only) or terminal throughput (throughput mode), in pixel
-    order. ``seed`` is the render seed (the JAX ``base_key`` is
-    ``PRNGKey(seed)``), ``iteration`` the 1-based sample index,
-    ``cluster_isect`` a :class:`~.cuda.mesh_kernel.ClusterMeshIntersector`
-    over the scene's triangles. ``pixel_offset``/``num_pixels`` select a
-    contiguous slice of the flat pixel array (multi-device use, ROADMAP
-    Queue 1 item 15).
+    order. ``seed`` is the JAX ``base_key``: a key ``(k0, k1)``, or the
+    render seed as the shorthand for ``PRNGKey(seed)``; ``iteration`` is the
+    1-based sample index, ``cluster_isect`` a
+    :class:`~.cuda.mesh_kernel.ClusterMeshIntersector` over the scene's
+    triangles. ``pixel_offset``/``num_pixels`` select a contiguous slice of
+    the flat pixel array (the multi-device pixel tiling, ``parallel.shard``).
 
     With ``config.nee`` a ``light_sampler`` over the scene's analytic
     emitters (``ops.lights.make_light_sampler``) must be given; the shadow

@@ -27,9 +27,12 @@ wavefront draws the same numbers as an unsorted one: the counter hash
 (:func:`hash_bounce_uniforms`, :func:`hash_nee_uniforms`) and the LD
 lane-layout wrappers (:func:`ld_pixel_jitter`, :func:`ld_lens_uniforms`,
 :func:`ld_bounce_uniforms`, :func:`ld_nee_bounce_uniforms`). Where the JAX
-functions take the render key ``PRNGKey(seed)``, these take ``seed``: the
-hash streams read only the key's last word, ``seed mod 2^32``, and the
-threefry streams rebuild the key with :func:`prng_key`.
+functions take a render key, these take ``seed``: either a key ``(k0, k1)``
+(for example :func:`fold_in` of ``prng_key(s)``, the key of a pixel shard
+in the multi-device step) or a plain int, the shorthand for
+``prng_key(seed)``. The hash streams and the LD lattices read only the
+key's last word (:func:`key_word`), the threefry streams fold from both
+(:func:`as_key`).
 
 The fast and reference pipelines never reorder their rays, so their
 per-bounce streams are indexed by lane: :func:`bounce_uniforms` (``[n,
@@ -76,6 +79,23 @@ def kernel_seed(seed: int) -> int:
     """The int32 kernel seed of a render seed: ``int32(seed mod 2^32)``,
     the last word of ``jax.random.PRNGKey(seed)`` read as int32."""
     return ((int(seed) & MASK32) ^ 0x80000000) - 0x80000000
+
+
+def as_key(seed) -> tuple:
+    """The render key of ``seed``: a key ``(k0, k1)`` as it is, a plain int
+    as :func:`prng_key` of it."""
+    if isinstance(seed, tuple):
+        return (u32(seed[0]), u32(seed[1]))
+    return prng_key(seed)
+
+
+def key_word(seed):
+    """The last word of ``seed``'s render key (JAX's ``key_data(key)[-1]``),
+    which the hash streams and the LD lattices read: ``k1`` of a key, ``seed
+    mod 2^32`` of a plain seed (an int or an integer tensor)."""
+    if isinstance(seed, tuple):
+        return int(seed[1]) & MASK32
+    return seed & MASK32
 
 
 def u32(x) -> torch.Tensor:
@@ -142,7 +162,7 @@ def sobol_pair(index) -> tuple:
 
 def ld_shift(seed: int, pixel_ids, tag: int) -> torch.Tensor:
     """Per-(pixel, dimension-tag, seed) uint32 Owen-scramble seed lattice."""
-    s = ((0x5D000000 + tag) & MASK32) ^ ((seed & MASK32) * 0x9E3779B9 & MASK32)
+    s = ((0x5D000000 + tag) & MASK32) ^ (key_word(seed) * 0x9E3779B9 & MASK32)
     x = u32(pixel_ids) ^ s
     x = mul32(x ^ (x >> 16), 0x7FEB352D)
     x = mul32(x ^ (x >> 15), 0x846CA68B)
@@ -276,7 +296,7 @@ def _hash_seed(seed: int, iteration: int, depth: int) -> int:
     the streams keyed by it take it as a scalar operand (no copy to the
     device)."""
     ctr = ((int(iteration) << 5) & MASK32) | (int(depth) & 31)
-    x = ctr ^ ((int(seed) & MASK32) * 0x9E3779B9 & MASK32)
+    x = ctr ^ (int(key_word(seed)) * 0x9E3779B9 & MASK32)
     x = ((x ^ (x >> 16)) * 0x85EBCA6B) & MASK32
     x = ((x ^ (x >> 13)) * 0xC2B2AE35) & MASK32
     return x ^ (x >> 16)
@@ -315,7 +335,7 @@ def bounce_key(seed: int, iteration, depth) -> tuple:
     """Key of one (sample iteration, bounce depth) pair, the JAX
     ``bounce_key``: ``fold_in(fold_in(PRNGKey(seed), iteration), depth)``,
     both folded as int32 words."""
-    return fold_in(fold_in(prng_key(seed), iteration), depth)
+    return fold_in(fold_in(as_key(seed), iteration), depth)
 
 
 def bounce_uniforms(seed: int, iteration, depth, n: int, device="cpu") -> torch.Tensor:
@@ -347,7 +367,7 @@ def env_uniforms(seed: int, iteration, depth, n: int, device="cpu") -> torch.Ten
 
 
 def _frame_uniforms(seed: int, iteration, tag: int, n: int, device) -> torch.Tensor:
-    return uniform(fold_in(fold_in(prng_key(seed), iteration), tag), (n, 2), device)
+    return uniform(fold_in(fold_in(as_key(seed), iteration), tag), (n, 2), device)
 
 
 def pixel_jitter(seed: int, iteration, n: int, device="cpu") -> torch.Tensor:

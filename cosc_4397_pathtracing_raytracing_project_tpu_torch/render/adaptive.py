@@ -19,6 +19,13 @@ the megakernel's tile dispatch (:func:`megakernel.render_tiles`, kernel K6).
 - Selection, dispatch and bookkeeping stay on the device: a round reads
   nothing back to the host. Ties in the gain go to the lower tile index, as
   ``jax.lax.top_k`` orders them.
+- With a device ``mesh`` (``parallel.make_mesh``, every rank running the
+  same renderer) each dispatch splits its tiles over all ranks
+  (``parallel.shard.render_tiles_sharded``) and every rank gathers all of
+  them, so every rank keeps the same accumulators and picks the same tiles.
+  A dispatch's tile count is then a multiple of the quantum (the rank
+  count if odd, half of it if even: the dispatch renders each tile twice);
+  a selection rounds up into real tiles, then pads with the trash tile.
 """
 
 from __future__ import annotations
@@ -87,19 +94,27 @@ def _dispatch_ab(
     config: RenderConfig,
     k: int,  # samples per buffer
     packed: megakernel.PackedScene,
+    mesh=None,
 ) -> None:
     """Render k samples into BOTH half-buffers for the selected tiles in a
     single launch: tiles [0, K) of the dispatch advance buffer A's
     iteration window (base+1 … base+k), tiles [K, 2K) buffer B's
-    (base+k+1 … base+2k). Adds into ``acc_a``/``acc_b`` in place."""
+    (base+k+1 … base+2k). Adds into ``acc_a``/``acc_b`` in place. With a
+    device ``mesh`` the 2K tiles split over its ranks
+    (``parallel.shard.render_tiles_sharded``: bit for bit, every rank gets
+    every tile's radiance)."""
     kk = tile_ids.shape[0]
     ids2 = torch.cat([tile_ids, tile_ids])
     bases2 = torch.cat([base + 1, base + 1 + k])
     rows = ids2.long()
-    rad = megakernel.render_tiles(
-        scene, config, seed, ids2, bases2,
-        px_all[rows].reshape(-1), py_all[rows].reshape(-1), k, packed=packed,
-    )
+    args = (scene, config, seed, ids2, bases2, px_all[rows].reshape(-1),
+            py_all[rows].reshape(-1), k)
+    if mesh is None:
+        rad = megakernel.render_tiles(*args, packed=packed)
+    else:
+        from ..parallel.shard import render_tiles_sharded
+
+        rad = render_tiles_sharded(*args, mesh, packed=packed)
     half = kk * megakernel.TILE
     flat_idx = idx_all[tile_ids.long()].reshape(-1)
     # indices are unique but for the trash slot: the adds do not depend on order
@@ -141,20 +156,29 @@ def _refine_round(
     k: int,
     n_sel: int,
     packed: megakernel.PackedScene,
+    n_disp: int,
+    mesh=None,
 ) -> torch.Tensor:
     """One refinement round on the device: estimate per-tile noise, pick
     the ``n_sel`` tiles with the largest marginal gain err/(count + k), render
     ``k`` more samples into each half-buffer for them and bump their counts
-    (in place). Returns the selected tile ids [n_sel] (on the device)."""
+    (in place). ``n_disp >= n_sel`` pads the dispatch with the trash tile
+    (the last entry of ``counts``) so it splits evenly over a device
+    ``mesh``. Returns the selected tile ids [n_sel] (on the device)."""
     err = _tile_errors(acc_a, acc_b, counts, idx_all, valid)
     gain = err / (counts.to(torch.float32) + float(k))
     # a stable descending sort keeps the lower index first among equal
     # gains, as jax.lax.top_k does (torch.topk promises no tie order)
     sel = torch.sort(gain[:-1], descending=True, stable=True).indices[:n_sel]
     sel = sel.to(torch.int32)
+    disp = sel
+    if n_disp > n_sel:
+        pad = torch.full((n_disp - n_sel,), counts.shape[0] - 1, dtype=torch.int32,
+                         device=sel.device)
+        disp = torch.cat([sel, pad])
     _dispatch_ab(
-        scene, acc_a, acc_b, seed, sel, counts[sel.long()] * 2,
-        px_all, py_all, idx_all, config, k, packed,
+        scene, acc_a, acc_b, seed, disp, counts[disp.long()] * 2,
+        px_all, py_all, idx_all, config, k, packed, mesh,
     )
     counts.index_add_(0, sel, torch.full_like(sel, k))
     return sel
@@ -173,7 +197,11 @@ class AdaptiveRenderer:
         spp = r.spp_map()        # where the samples went
 
     ``device`` is explicit, as for ``Renderer``: a CUDA device launches the
-    CUDA kernel, ``"cpu"`` runs its plain version."""
+    CUDA kernel, ``"cpu"`` runs its plain version. With a device ``mesh``
+    (``parallel.make_mesh``) every rank of the mesh builds the same renderer
+    on its own device and calls the same methods in the same order; each
+    dispatch's tiles split over the ranks, and every rank holds the whole
+    image."""
 
     def __init__(
         self,
@@ -184,11 +212,6 @@ class AdaptiveRenderer:
         device="cuda",
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device adaptive sampling is not ported yet (ROADMAP "
-                "Queue 1 item 15)"
-            )
         self.device = _check_device(device)
         if isinstance(scene, str):
             scene = load_scene_desc(scene)
@@ -226,8 +249,20 @@ class AdaptiveRenderer:
         self._n = w * h
         px, py, idx, valid = make_tile_layout(w, h, tile_shape)
         self.num_tiles = px.shape[0]
-        # the trailing trash tile: tile 0's coordinates, every lane scattered
-        # into the trash slot (the JAX layout, which pads sharded dispatches)
+        # multi-device: a dispatch of 2K tiles splits evenly over the mesh's
+        # ranks, so K is a multiple of the quantum m (the rank count if odd,
+        # half of it if even); past the real tiles it pads with the trailing
+        # trash tile: tile 0's coordinates, every lane scattered into the
+        # trash slot (the JAX layout), so any frame and mesh go together
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh), got "
+                                f"{type(mesh).__name__}")
+        self._mesh = mesh
+        n_dev = 1 if mesh is None else mesh.size()
+        self._quantum = n_dev if n_dev % 2 else n_dev // 2
         self._pad_tile = self.num_tiles
         px = np.concatenate([px, px[:1]])
         py = np.concatenate([py, py[:1]])
@@ -257,15 +292,18 @@ class AdaptiveRenderer:
         """Uniform bootstrap: spp total samples (spp//2 per buffer) on every
         tile — the two-buffer estimate needs a baseline everywhere."""
         k = max(1, spp // 2)
-        ids = torch.arange(self.num_tiles, dtype=torch.int32, device=self.device)
+        # the all-tiles dispatch, padded up to the quantum with trash tiles
+        kd = -(-self.num_tiles // self._quantum) * self._quantum
+        ids = torch.clamp_max(torch.arange(kd, dtype=torch.int32, device=self.device),
+                              self._pad_tile)
         t0 = time.perf_counter()
         _dispatch_ab(
             self.scene, self._acc_a, self._acc_b, self._seed, ids,
-            self._counts[: self.num_tiles] * 2, self._px_all, self._py_all, self._idx_all,
-            self.config, k, self._packed,
+            self._counts[ids.long()] * 2, self._px_all, self._py_all, self._idx_all,
+            self.config, k, self._packed, self._mesh,
         )
         self._counts[: self.num_tiles] += k
-        self._lane_budget_spent += 2 * k * self.num_tiles * megakernel.TILE
+        self._lane_budget_spent += 2 * k * kd * megakernel.TILE
         self._wall += time.perf_counter() - t0
 
     def tile_errors(self) -> np.ndarray:
@@ -281,14 +319,20 @@ class AdaptiveRenderer:
         of tiles with the largest marginal MSE gain. Returns the selected
         tile ids (on the device; only callers who read them pay a sync)."""
         k = max(1, spp // 2)
-        n_sel = min(max(1, int(round(self.num_tiles * frac))), self.num_tiles)
+        # sharded: round the selection up to a multiple of the quantum, into
+        # real tiles while any remain (the extra slots do useful work), then
+        # pad with the trash tile
+        m = self._quantum
+        n_sel = max(1, int(round(self.num_tiles * frac)))
+        n_sel = min(-(-n_sel // m) * m, self.num_tiles)
+        n_disp = -(-n_sel // m) * m
         t0 = time.perf_counter()
         sel = _refine_round(
             self.scene, self._acc_a, self._acc_b, self._counts, self._seed,
             self._px_all, self._py_all, self._idx_all, self._valid,
-            self.config, k, n_sel, self._packed,
+            self.config, k, n_sel, self._packed, n_disp, self._mesh,
         )
-        self._lane_budget_spent += 2 * k * n_sel * megakernel.TILE
+        self._lane_budget_spent += 2 * k * n_disp * megakernel.TILE
         self._wall += time.perf_counter() - t0
         return sel
 

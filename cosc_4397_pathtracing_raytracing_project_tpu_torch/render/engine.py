@@ -174,7 +174,7 @@ def make_intersector(scene: Scene, config: RenderConfig) -> Callable:
 def trace_sample(
     scene: Scene,
     config: RenderConfig,
-    seed: int,
+    seed,
     iteration: int,
     intersector: Optional[Callable] = None,
     pixel_offset: int = 0,
@@ -190,8 +190,10 @@ def trace_sample(
     raygen, then per bounce ``intersector`` (``intersect_scene`` by
     default) and ``shade_step``, with area-light NEE when a
     ``light_sampler`` is given and environment NEE on a scene with a map,
-    under ``config.nee``. ``seed`` is the render seed (the JAX base key is
-    ``PRNGKey(seed)``), ``iteration`` the 1-based sample index.
+    under ``config.nee``. ``seed`` is the JAX base key: a key ``(k0, k1)``
+    (``ops.rng.fold_in`` of a render key, as the multi-device step folds in
+    its pixel shard), or the render seed as the shorthand for
+    ``PRNGKey(seed)``; ``iteration`` is the 1-based sample index.
     ``pipeline`` is ``config.resolve_pipeline(scene)``, resolved here when
     not given: under ``nee`` with an exact map that resolution reads the
     scene's light table back to the host, so a caller that renders many

@@ -27,7 +27,9 @@ compile-time variants through ctypes. For each case it prints:
   ``env_row_table`` of the kernel's own directions bit for bit.
 
 The tile dispatch cases run with queue items of one sample, of two and of
-all of a pixel's samples. Exits non-zero if a counting build disagrees with
+all of a pixel's samples; the ``-slice`` cases render a slice of the frame
+(``SLICE``: its pixel offset, count and first hash tile) against the plain
+version of the same slice. Exits non-zero if a counting build disagrees with
 the emulation. A logic error found here costs no chip time; timing means
 nothing here.
 """
@@ -57,6 +59,9 @@ SHIM = os.path.join(REPO, "scripts", "cpu_shim")
 OUT = os.path.join(REPO, "build", "cpu_shim")
 SCENES = os.path.join(REPO, "scenes")
 RES = (40, 30)
+# the slice cases' pixels (the multi-device tiling's launch): 601 pixels from
+# global pixel 517, their hash tiles numbered from 5
+SLICE = dict(pixel_offset=517, num_pixels=601, tile_base=5)
 # the launches' rewrites: `<<<...>>>` becomes the shim's launch, and the
 # dynamic shared memory a per-launch buffer
 SED = (
@@ -95,28 +100,36 @@ def build(source, counting):
     # after the tile count; one with env NEE's row kernel reads the rows
     # with their per-geom table
     groups = "int num_tiles, int group," in text
-    fn.argtypes = ([p] + [i] * 12 + [f] + [i] * 4 + [p] * 5 + [i] * 3 + [p, p, i, p, p, p, i]
-                   + ([i, p] if groups else []) + [i, p, p, p, i, i, p, i, p, i, p, p, p, p])
+    # one that renders pixel slices takes their offset and tile base after
+    # the iteration base
+    sliced = "int pixel_offset," in text
+    fn.argtypes = ([p] + [i] * (14 if sliced else 12) + [f] + [i] * 4 + [p] * 5 + [i] * 3
+                   + [p, p, i, p, p, p, i] + ([i, p] if groups else [])
+                   + [i, p, p, p, i, i, p, i, p, i, p, p, p, p])
     rows = None
     if "pt_env_rows_launch" in text:
         rows = dll.pt_env_rows_launch
         rows.restype = ctypes.c_int
         rows.argtypes = [p, i, i, i, i, p, p, p, p, p, i, i, p, p, i, i, p]
-    return fn, groups, rows
+    return fn, groups, rows, sliced
 
 
 def launch(lib, packed, opts, seed, iter_base, num_samples, tiles=None, group=None,
-           work_len=None):
+           work_len=None, pixel_offset=0, num_pixels=None, tile_base=0):
     """One launch of a shim build, as Megakernel.__call__ makes it on a
     card: the [N, 3] output, and for a counting build its counters and the
-    warp of each chunk of 32 queue items."""
-    fn, groups, row_kernel = lib
+    warp of each chunk of 32 queue items. Without tiles it renders
+    ``num_pixels`` pixels from ``pixel_offset`` (the whole frame by
+    default), their hash tiles numbered from ``tile_base``."""
+    fn, groups, row_kernel, sliced = lib
+    if not sliced and (pixel_offset or num_pixels is not None or tile_base):
+        raise ValueError("this source renders the whole frame only")
     lights_f = lights_i = None
     num_lights = 0
     if opts.nee:
         lights_f, lights_i = packed.lights.packed()
         num_lights = packed.lights.count
-    n = packed.width * packed.height
+    n = packed.width * packed.height if num_pixels is None else num_pixels
     table = px = py = None
     num_tiles = 0
     items = n
@@ -153,8 +166,9 @@ def launch(lib, packed, opts, seed, iter_base, num_samples, tiles=None, group=No
     tile_args = [dptr(table), dptr(px), dptr(py), num_tiles]
     if groups:
         tile_args += [int(group or num_samples), dptr(units)]
+    slice_args = [pixel_offset, tile_base] if sliced else []
     err = fn(out.data_ptr(), n, packed.width, packed.height, kernel_seed(seed), int(iter_base),
-             opts.tile, int(num_samples), opts.trace_depth, opts.rr_start_depth,
+             *slice_args, opts.tile, int(num_samples), opts.trace_depth, opts.rr_start_depth,
              int(opts.antialias), int(opts.use_ld), opts.n_ld, opts.sky_strength, int(opts.nee),
              int(opts.refraction), int(opts.dof), int(opts.legacy), packed.cam.ctypes.data,
              packed.geo.ctypes.data, packed.mats.ctypes.data, packed.gmat.ctypes.data,
@@ -218,6 +232,12 @@ CASES = {
     "env-exact": ("env_spheres.txt", False, dict(), 3),
     "env-nee": ("env_spheres.txt", False, dict(nee=True), 3),
     "split": ("env_spheres.txt", False, dict(env_mode="split"), 3),
+    "main-slice": ("cornell.txt", False, dict(sampler="sobol"), 3),
+    "nee-slice": ("cornell_golden.txt", False, dict(nee=True, antialias=True, sampler="sobol"),
+                  4),
+    "env-exact-slice": ("env_spheres.txt", False, dict(sampler="sobol"), 3),
+    "env-nee-slice": ("env_spheres.txt", False, dict(nee=True), 3),
+    "split-slice": ("env_spheres.txt", False, dict(env_mode="split"), 3),
     "tiles-nee": ("cornell_golden.txt", False, dict(nee=True, sampler="sobol"), 4),
     "tiles": ("cornell_golden.txt", False, dict(sampler="sobol"), 4),
     "tiles-env-exact": ("env_spheres.txt", False, dict(sampler="sobol"), 4),
@@ -253,24 +273,31 @@ def main() -> int:
             py = (flat // RES[0]).to(torch.float32)
             kw = dict(tiles=(torch.cat([ids, bases]), px, py))
             runs = [1, 2, samples]
+        elif name.endswith("-slice"):
+            # a slice that starts and ends inside a warp's chunk of 32, on
+            # hash tiles numbered from 5
+            kw = dict(tiles=None, **SLICE)
         stats = {}
         if tiled:
             want = mk.render_tiles_reference(px, py, ids, bases, packed, opts, 7, samples,
                                              stats=stats)
         else:
-            want = mk.render_samples_reference(torch.arange(RES[0] * RES[1]), packed, opts, 7, 3,
-                                               samples, stats=stats)
+            first = kw.get("pixel_offset", 0)
+            pix = first + torch.arange(kw.get("num_pixels") or RES[0] * RES[1])
+            want = mk.render_samples_reference(pix, packed, opts, 7, 3, samples, stats=stats,
+                                               tile_base=kw.get("tile_base", 0))
         base = 0 if tiled else 3
         steps, draws = mk.path_lengths(stats)
         parent = (launch(libs["parent"], packed, opts, 7, base, samples, tiles=kw["tiles"])
-                  if args.parent else None)
+                  if args.parent and "pixel_offset" not in kw else None)
         for group in runs:
             got = launch(libs["change"], packed, opts, 7, base, samples, group=group, **kw)
             _, counted, owners = launch(libs["counting"], packed, opts, 7, base, samples,
                                         group=group, work_len=len(mk.WORK), **kw)
             em = mk.warp_schedule(steps, draws, mk.SCHEDULE, **mk.schedule_args(opts, tiled),
                                   owners=owners, vis=mk.path_visibility(stats),
-                                  group=group if tiled else None)
+                                  group=group if tiled else None, width=RES[0],
+                                  pixel_offset=kw.get("pixel_offset", 0))
             equal = counted == {k: em[k] for k in mk.WORK}
             ok = ok and equal
             line = (f"{name} [{mk.variant_name(opts, tiled)}]"

@@ -202,5 +202,9 @@ def test_pipeline_fields_render_through_the_tile_kernel(overrides):
 
 
 def test_mesh_argument_raises():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """``mesh=`` raised NotImplementedError naming ROADMAP Queue 1 item 15
+    until multi-device rendering was ported (tests/test_torch_parallel.py
+    holds the sharded renderer bit for bit to the unsharded one); now a
+    mesh that is not a DeviceMesh raises."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         AdaptiveRenderer(parse_scene(CORNELL_SMALL), RenderConfig(), device="cpu", mesh=object())

@@ -1462,3 +1462,77 @@ def test_cuda_cli_default_device(cuda, tmp_path):
     assert rc == 0 and tmk.KERNEL.launches > 0
     img = read_png(str(out))
     assert img.shape == (64, 64, 3) and img.max() > 0
+
+
+# ── a pixel slice of the frame (the multi-device pixel tiling): 800x800,
+# misaligned slices, the hash tiles from the tile base ──
+
+SLICE_CASES = {
+    "main": ("cornell.txt", dict(sampler="sobol")),
+    "nee": ("cornell_golden.txt", dict(nee=True, antialias=True, sampler="sobol")),
+    "env-exact": ("env_spheres.txt", dict(sampler="sobol")),
+    "env-nee": ("env_spheres.txt", dict(nee=True)),
+    "split": ("env_spheres.txt", dict(env_mode="split")),
+}
+# (pixel offset, pixels, tile base): the second dp rank's half of 800x800
+# (no TILE boundary at 320,000) on its own tile base, and a slice that
+# starts and ends inside a warp's chunk of 32 on the default base
+SLICES = {"dp-half": (320000, 320000, 157), "odd": (123457, 100001, None)}
+
+
+def slice_case(case, device):
+    """(scene, config, options, packed scene) of a slice case at 800x800."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import load_scene_desc
+
+    name, cfg = SLICE_CASES[case]
+    scene = Scene.from_desc(load_scene_desc(os.path.join(_SCENES, name)), device)
+    config = RenderConfig(**cfg)
+    opts = tmk.kernel_options(config, scene)
+    return scene, config, opts, tmk.pack_scene(scene, nee=opts.nee, config=config)
+
+
+def slice_reference(packed, opts, seed, iter_base, num_samples, offset, n, tile_base, device):
+    """The plain version of ``render_samples`` on the slice (the split
+    mode's composite of the slice's own rows included)."""
+    pix = offset + torch.arange(n, device=device)
+    rad = tmk.render_samples_reference(pix, packed, opts, seed, iter_base, num_samples,
+                                       tile_base=offset // tmk.TILE if tile_base is None
+                                       else tile_base)
+    return tmk._add_background(rad, packed, opts, num_samples, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", list(SLICES))
+@pytest.mark.parametrize("case", list(SLICE_CASES))
+def test_cuda_slice_matches_plain_version(case, where, cuda):
+    """render_samples on a slice of the frame, on the card, against its
+    plain version on the same slice: bit for bit without NEE, within the
+    kernel-vs-plain bound with it."""
+    scene, config, opts, packed = slice_case(case, cuda)
+    offset, n, tile_base = SLICES[where]
+    launches = tmk.KERNEL.launches
+    got = tmk.render_samples(scene, config, 7, 3, 2, packed=packed, pixel_offset=offset,
+                             num_pixels=n, tile_base=tile_base)
+    assert tmk.KERNEL.launches == launches + 1 and got.shape == (n, 3)
+    want = slice_reference(packed, opts, 7, 3, 2, offset, n, tile_base, cuda)
+    assert_kernel_output(got, want, opts.nee)
+
+
+@pytest.mark.cuda
+def test_cuda_counting_build_on_a_slice_equals_the_warp_schedule(cuda):
+    """The counting build on the odd slice (main variant, 2 samples) against
+    warp_schedule's replay on the plain version's paths of that slice."""
+    scene, config, opts, packed = slice_case("main", cuda)
+    offset, n, _ = SLICES["odd"]
+    counted, owners = tmk.kernel_warp_work(packed, opts, 7, 3, 2, cuda, pixel_offset=offset,
+                                           num_pixels=n)
+    stats = {}
+    pix = offset + torch.arange(n, device=cuda)
+    tmk.render_samples_reference(pix, packed, opts, 7, 3, 2, stats=stats,
+                                 tile_base=offset // tmk.TILE)
+    steps, draws = tmk.path_lengths(stats)
+    want = tmk.warp_schedule(steps, draws, tmk.SCHEDULE, **tmk.schedule_args(opts),
+                             owners=owners, vis=tmk.path_visibility(stats), width=800,
+                             pixel_offset=offset)
+    assert counted == {k: want[k] for k in tmk.WORK}
+    assert (want["visits"] == 1).all() and len(owners) == (n + 31) // 32
