@@ -7,7 +7,8 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. build: compile the port's CUDA sources (csrc/megakernel.cu and
    csrc/mesh_kernel.cu, each also as its work-counting build, one nvcc
-   each, all started together) into build/torch_kernels/ and print ptxas'
+   each, and the host runtime native/src/ptruntime.cc with g++, all started
+   together) into build/torch_kernels/ and print ptxas'
    register and spill report for each compile-time variant of the
    megakernel and each instantiation of the mesh kernel, and the blocks an
    SM holds of the main and every NEE variant;
@@ -86,7 +87,8 @@ Phases, in order; any failure raises and exits non-zero:
    sobol).render(256) through the tile dispatch with exact env;
 15. peak device memory and the total time so far;
 16. the mesh kernels K7/K8 on scenes/mesh1080p.txt (1920×1080, depth 8,
-   38,530 triangles): the set-up's times (BVH build, packing, upload), then
+   38,530 triangles): the set-up's times (the native BVH build, packing,
+   upload), then
    the kernels against their plain version on the real rays of a 1-spp NEE
    render (K7 on every bounce's rays, with dead rays inactive, K8 on every
    bounce's shadow rays): shares of active rays whose t (bound 0) or index
@@ -175,7 +177,27 @@ Phases, in order; any failure raises and exits non-zero:
    (parallel.dryrun.dryrun_multichip, four ranks). Each leg prints its
    backend, world size, time and rays/s, and every rank's launches of the
    leg's kernel in its timed run (counts set to 0 just before it), which
-   must be above 0; then one JSON
+   must be above 0;
+26. the native host runtime (native/, built by phase 1 from the checkout's
+   native/src/ptruntime.cc with the host compiler, beside the nvcc builds)
+   and the single-device entry point, host times on this machine's CPU:
+   (a) the library's path, the compiler's version and flags, the build's
+   seconds; (b) mesh1080p: each of its OBJ files loaded natively and by the
+   plain loader (bit for bit), and the BVH over its triangle boxes at leaf
+   8 as make_mesh_intersector builds it (order, miss links, leaf starts and
+   counts equal, the bounds bit for bit), with the times of each; (c) a
+   2048x4096 map (env_spheres' meadow with each texel repeated 16 x 16):
+   its alias table native against the plain Python loop (bit for bit), both
+   times, build_envmap's tables the native ones; then env_spheres.txt under
+   that map (the fast pipeline: past the megakernel's texel budget), exact
+   and with env NEE, a warm-up sample then render(4): rays/s, a finite
+   frame; (d) the golden image written by the native PNG writer reads back
+   equal, and tests/data/REFERENCE_cornell.5000samp.png's rows through the
+   native defilter equal the NumPy path's; (e) entry() (the fast pipeline:
+   cornell.txt, sobol, one sample) at 200x200 on the card against the same
+   call on the CPU (phase 20's bound), then at full size on the card: one
+   call's seconds after a warm-up and a finite accumulator there;
+then one JSON
    line describing each ported kernel (K6's times and bound are the
    round's; K7's and K8's are the sums over one mesh pipeline sample's
    launches, whose count 'launches_per_sample' gives; K7's
@@ -190,7 +212,8 @@ reference pipeline's BVH), 24 the command line's (K1, K2 and K6 through its
 subprocesses; the launches of its library and server runs are read here),
 25 the multi-device paths' (K1-K6 through the sharded megakernel step and
 the tile-sharded adaptive dispatch, K7/K8 through the sharded mesh step;
-each rank process reports its own launches). It needs a CUDA device and
+each rank process reports its own launches), 26 the host runtime's (no
+kernel: host C++ and the eager fast pipeline). It needs a CUDA device and
 the repository's files: without either it fails before printing any
 result.
 """
@@ -397,6 +420,14 @@ MD_FAST_CORR = 0.95
 # sp = 2 adds two half-sums: tests/test_parallel.py:140's bound
 MD_SP_RTOL = 1e-5
 MD_SP_ATOL = 1e-6
+
+# phase 26, the host runtime and the single-device entry point: the map of
+# (c), the meadow with each texel repeated 16 x 16 (2048x4096, 8.4M texels:
+# a production-size HDR, past the megakernel's texel budget), its renders'
+# samples, and the size of entry()'s card-against-CPU gate (phase 20's)
+HOST_MAP_REPEAT = 16
+HOST_ENV_SPP = 4
+ENTRY_GATE_RES = 200
 
 ADAPTIVE_TILES = 325
 ADAPTIVE_DISPATCH = {
@@ -678,7 +709,7 @@ def _mesh_phases(device, seed, scene_path):
         load_scene_desc,
     )
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import fast
-    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.bvh import build_bvh
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.bvh import try_native_build
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as mesh
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.lights import make_light_sampler
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import (
@@ -699,10 +730,10 @@ def _mesh_phases(device, seed, scene_path):
     v0, e1, e2 = (t.cpu().numpy() for t in (scene.triangles.v0, scene.triangles.e1,
                                               scene.triangles.e2))
     t0 = time.perf_counter()
-    build_bvh(np.minimum(np.minimum(v0, v0 + e1), v0 + e2),
-              np.maximum(np.maximum(v0, v0 + e1), v0 + e2), leaf_size=8)
+    try_native_build(np.minimum(np.minimum(v0, v0 + e1), v0 + e2),
+                     np.maximum(np.maximum(v0, v0 + e1), v0 + e2), leaf_size=8)
     bvh_s = time.perf_counter() - t0
-    print(f"  set-up: parse + scene {load_s:.3f} s; intersector {setup_s:.3f} s: BVH build "
+    print(f"  set-up: parse + scene {load_s:.3f} s; intersector {setup_s:.3f} s: native BVH build "
           f"{bvh_s:.3f} s ({scene.num_triangles} triangles, leaf 8), then packing "
           f"({tables.num_clusters} clusters, {tables.num_super} superclusters) and upload "
           f"({tables.nbytes} bytes) {setup_s - bvh_s:.3f} s")
@@ -1424,6 +1455,166 @@ def _multi_device_phase(device, seed, scene_path, ref_img, smi):
     return dry
 
 
+def _host_runtime_phase(device, seed, scene_path, host_build, smi):
+    """Phase 26: the native host runtime (native/, built in phase 1 from the
+    checkout's source) against its plain versions on this machine's CPU,
+    a production-size map through it, and the single-device entry point.
+    ``host_build`` is phase 1's (library path, build seconds)."""
+    import numpy as np
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
+        RenderConfig,
+        Renderer,
+        Scene,
+        load_scene_desc,
+        parse_scene,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import entry as entry_mod
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.io import png
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.native import runtime
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import bvh as bvh_ops
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import envmap
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import build
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.scene import parser
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    t_phase = time.perf_counter()
+    print(f"[26] the host runtime (native/) and the single-device entry point ({smi}); host "
+          f"times are this machine's CPU")
+    path, build_s = host_build
+    compiler = subprocess.run([build.host_compiler(), "--version"], capture_output=True,
+                              text=True).stdout.splitlines()[0]
+    if runtime.ensure_built() != path or not path.exists():
+        raise AssertionError(f"the host runtime is not the library phase 1 built ({path})")
+    print(f"  (a) {path.relative_to(REPO)}, built from "
+          f"{build.host_source_path(runtime.NAME).relative_to(REPO)} by {compiler} "
+          f"{' '.join(build.HOST_FLAGS + build.HOST_LIBS)} in {build_s:.3f} s")
+
+    # (b) mesh1080p: its OBJ files, then the BVH of make_mesh_intersector
+    mesh_path = scene_path("mesh1080p.txt")
+    objs = [line.split()[1] for line in open(mesh_path) if line.split()[:1] == ["FILE"]
+            and line.split()[1].endswith(".obj")]
+    for name in objs:
+        obj = scene_path(name)
+        got, native_s = timed(runtime.load_obj_triangles, obj)
+        want, plain_s = timed(parser.load_obj_triangles, obj)
+        same = got.shape == want.shape and np.array_equal(got.view(np.uint32),
+                                                          want.view(np.uint32))
+        print(f"  (b) {name}: {len(got)} triangles, native {native_s:.4f} s, plain "
+              f"{plain_s:.4f} s, bit for bit {same}")
+        if not same:
+            raise AssertionError(f"the native OBJ loader disagrees with the plain one on {name}")
+    tri = Scene.from_desc(load_scene_desc(mesh_path), "cpu").triangles
+    v0, e1, e2 = (t.numpy() for t in (tri.v0, tri.e1, tri.e2))
+    tmin = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
+    tmax = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
+    got, native_s = timed(bvh_ops.try_native_build, tmin, tmax, 8)
+    want, plain_s = timed(bvh_ops.build_bvh, tmin, tmax, 8)
+    fields = ("order", "miss_link", "leaf_start", "leaf_count", "bounds_min", "bounds_max")
+    differ = [f for f in fields if not (getattr(got, f).shape == getattr(want, f).shape
+                                        and np.array_equal(getattr(got, f).view(np.uint32),
+                                                           getattr(want, f).view(np.uint32)))]
+    print(f"  (b) BVH over {len(v0)} triangle boxes, leaf 8: {got.num_nodes} nodes (plain "
+          f"{want.num_nodes}); native {native_s:.4f} s, plain {plain_s:.4f} s "
+          f"({plain_s / native_s:.1f}x); fields that differ (bounds bit for bit): {differ}")
+    if differ or got.num_nodes != want.num_nodes:
+        raise AssertionError(f"the native BVH differs from the plain build in {differ}")
+
+    # (c) a 2048x4096 map: its alias table native against plain, then
+    # env_spheres under it (past the megakernel's texel budget: the fast
+    # pipeline) in exact mode and with env NEE
+    scenes_dir = os.path.dirname(scene_path("env_spheres.txt"))
+    desc = parse_scene(open(scene_path("env_spheres.txt")).read(), base_dir=scenes_dir)
+    big = dataclasses.replace(desc, env_image=np.repeat(np.repeat(
+        desc.env_image, HOST_MAP_REPEAT, 0), HOST_MAP_REPEAT, 1))
+    (p, _), dist_s = timed(envmap.texel_distribution, big.env_image)
+    (prob, alias), native_s = timed(runtime.build_alias, p)
+    (pprob, palias), plain_s = timed(envmap._build_alias, p)
+    same = np.array_equal(prob.view(np.uint64), pprob.view(np.uint64)) and np.array_equal(
+        alias, palias)
+    env, env_s = timed(envmap.build_envmap, big.env_image, big.env_strength, device)
+    same_env = (np.array_equal(env.alias_prob.cpu().numpy(), prob.astype(np.float32))
+                and np.array_equal(env.alias_idx.cpu().numpy(), alias))
+    h, w = big.env_image.shape[:2]
+    print(f"  (c) {h}x{w} map ({h * w} texels): texel distribution {dist_s:.3f} s; alias "
+          f"table native {native_s:.4f} s, plain {plain_s:.3f} s ({plain_s / native_s:.0f}x), "
+          f"bit for bit {same}; build_envmap to {device} {env_s:.3f} s, its tables the native "
+          f"ones {same_env}")
+    if not (same and same_env):
+        raise AssertionError("the native alias table disagrees with the plain one")
+    del env, p, prob, alias, pprob, palias
+    for what, cfg in (("exact", RenderConfig()), ("env NEE", RenderConfig(nee=True))):
+        r, setup_s = timed(Renderer, big, cfg, seed, device)
+        if r.pipeline != "fast":
+            raise AssertionError(f"the {h}x{w} map ({what}) routed to {r.pipeline!r}, not 'fast'")
+        r.step(1)  # warm-up
+        r.reset()
+        t0 = time.perf_counter()
+        r.render(HOST_ENV_SPP)
+        wall = time.perf_counter() - t0
+        img = r.linear_image()
+        rays = r.scene.camera.pixel_count * HOST_ENV_SPP / wall
+        print(f"  (c) env_spheres.txt under the {h}x{w} map, {what} ({r.pipeline}): set-up "
+              f"{setup_s:.3f} s, render({HOST_ENV_SPP}) {rays:.6e} rays/s, "
+              f"{wall / HOST_ENV_SPP * 1e3:.3f} ms/sample, mean {img.mean():.6f}")
+        if not (np.isfinite(img).all() and img.mean() > 0.0):
+            raise AssertionError(f"the {h}x{w} map's {what} frame is not finite or black")
+        del r
+
+    # (d) PNG: the golden image written natively reads back equal; its
+    # decode through the native defilter equals the NumPy path's
+    golden = os.path.join(REPO, "tests", "data", "REFERENCE_cornell.5000samp.png")
+    img = png.read_png(golden)
+    out_dir = os.path.join(REPO, "build", "host_runtime")
+    os.makedirs(out_dir, exist_ok=True)
+    written, write_s = timed(png.write_png, os.path.join(out_dir, "golden.png"), img)
+    back = png.read_png(written)
+    same_bytes = open(written, "rb").read() == png.encode_png(img)
+    raw, (height, width, channels) = png._scanlines(golden)
+    filters = np.bincount(raw[:, 0], minlength=5)
+    got, native_s = timed(png._defilter, raw.copy(), height, width * channels, channels)
+    want, plain_s = timed(png._defilter_reference, raw.copy(), height, width * channels, channels)
+    print(f"  (d) golden {width}x{height} written natively in {write_s:.4f} s reads back equal "
+          f"{np.array_equal(back, img)} (bytes equal to encode_png's {same_bytes}); its rows' "
+          f"filters {filters.tolist()}; defilter native {native_s * 1e3:.3f} ms, plain "
+          f"{plain_s * 1e3:.3f} ms, equal {np.array_equal(got, want)}")
+    if not (np.array_equal(back, img) and np.array_equal(got, want)):
+        raise AssertionError("the native PNG writer or defilter disagrees with the plain path")
+
+    # (e) the single-device entry point: the card against the CPU, then one
+    # call at full size on the card
+    outs = []
+    for dev in (device, "cpu"):
+        fn, args = entry_mod.entry(dev, (ENTRY_GATE_RES, ENTRY_GATE_RES))
+        outs.append(fn(*args).accum.cpu())
+    share, mean_rel = _agreement(*outs)
+    print(f"  (e) entry() at {ENTRY_GATE_RES}x{ENTRY_GATE_RES}, card against CPU: share of "
+          f"pixels > 1e-3 {share:.4e} (bound {ORACLE_SHARE}), channel means within "
+          f"{mean_rel:.4e} (bound {ORACLE_MEAN_RTOL})")
+    if share > ORACLE_SHARE or mean_rel > ORACLE_MEAN_RTOL:
+        raise AssertionError("entry() on the card disagrees with the CPU")
+    (fn, args), setup_s = timed(entry_mod.entry)
+    fn(*args)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    pixels = args[0].camera.pixel_count
+    print(f"  (e) entry() at full size ({pixels} pixels) on {out.accum.device}: set-up "
+          f"{setup_s:.3f} s, one call {call_s:.4f} s after a warm-up ({pixels / call_s:.6e} "
+          f"rays/s), iteration {out.iteration}, mean {float(out.accum.mean()):.6f}")
+    if not (out.accum.device.type == "cuda" and out.iteration == 1
+            and bool(torch.isfinite(out.accum).all()) and float(out.accum.mean()) > 0.0):
+        raise AssertionError("entry()'s accumulator is not a finite frame on the card")
+    print(f"  phase [26] {time.perf_counter() - t_phase:.1f} s")
+
+
 def _cli_phase(device, seed, scene_path, ref_img, smi):
     """Phase 24: the command line on the card (python -m of the port), the
     denoiser, checkpoints, profiling and the preview server."""
@@ -1949,6 +2140,9 @@ def main() -> int:
         parse_scene,
     )
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import read_png
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.native import (
+        runtime as native_runtime,
+    )
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import build
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as mesh
@@ -1971,12 +2165,20 @@ def main() -> int:
         build.build(kernel.name, kernel.flags)
         return time.perf_counter() - t0
 
+    def timed_host_build():
+        t_host = time.perf_counter()
+        path = native_runtime.ensure_built()
+        return path, time.perf_counter() - t_host
+
     libs = {"megakernel": mk.KERNEL, "megakernel (counting)": mk.COUNTING,
             "mesh_kernel": mesh.KERNEL, "mesh_kernel (counting)": mesh.COUNTING}
-    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+    with ThreadPoolExecutor(max_workers=len(libs) + 1) as pool:
+        host = pool.submit(timed_host_build)
         done = {what: pool.submit(timed_build, kernel) for what, kernel in libs.items()}
         for what, fut in done.items():
             print(f"  {what} built after {fut.result():.1f} s")
+        host_build = host.result()
+        print(f"  host runtime {host_build[0].name} built in {host_build[1]:.1f} s")
     print(f"  built in {time.perf_counter() - t0:.1f} s")
     for kernel, regs, spill in _mesh_ptxas_report(build.log_path(mesh.KERNEL.name).read_text()):
         print(f"  ptxas: mesh {kernel}: {regs} registers; {spill}")
@@ -2357,6 +2559,7 @@ def main() -> int:
     k7_reference = _pipeline_phases(device, seed, scene_path, ref_img, smi)
     _cli_phase(device, seed, scene_path, ref_img, smi)
     _multi_device_phase(device, seed, scene_path, ref_img, smi)
+    _host_runtime_phase(device, seed, scene_path, host_build, smi)
     print(f"  peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
           f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [

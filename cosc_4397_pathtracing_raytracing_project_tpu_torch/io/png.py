@@ -1,9 +1,12 @@
 """Dependency-free PNG/HDR image I/O (NumPy + zlib).
 
 Port of the JAX package's ``io/png.py``: the same encoder, decoder and RGBE
-codec, without its optional C++ fast paths, so every call takes the pure
-NumPy route (byte-identical output). Decoding supports the subset needed to
-load the golden images (8-bit RGB/RGBA/gray, non-interlaced)."""
+codec. :func:`write_png` and the scanline defilter of :func:`read_png` run
+in the native host runtime (``native.runtime``), always. :func:`encode_png`
+(the in-memory encoder, which the preview server sends) is the writer's
+plain version, and :func:`_defilter_reference` the defilter's. Decoding
+supports the subset needed to load the golden images (8-bit RGB/RGBA/gray,
+non-interlaced)."""
 
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from ..native import runtime as native_runtime
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -46,15 +51,23 @@ def encode_png(image: np.ndarray, compress_level: int = 6) -> bytes:
 
 
 def write_png(path: str, image: np.ndarray) -> str:
-    if not path.endswith(".png"):
-        path = path + ".png"
-    with open(path, "wb") as f:
-        f.write(encode_png(image))
-    return path
+    """Write an [H, W, 3|4] uint8 image as a PNG through the native writer
+    (filter 0, zlib level 6, as :func:`encode_png`); ``.png`` is appended
+    when missing. Returns the path written."""
+    return native_runtime.write_png(path, image)
 
 
 def _defilter(raw: np.ndarray, height: int, stride: int, channels: int) -> np.ndarray:
-    """Reverse PNG scanline filters; `raw` is uint8 [height, 1+stride].
+    """Reverse PNG scanline filters in place through the native runtime;
+    `raw` is uint8 [height, 1+stride]. Returns the [height, stride]
+    payload."""
+    native_runtime.png_defilter(raw, height, stride, channels)
+    return raw[:, 1:]
+
+
+def _defilter_reference(raw: np.ndarray, height: int, stride: int,
+                        channels: int) -> np.ndarray:
+    """The plain version of :func:`_defilter`, in place on the same input.
     Vectorized NumPy: per-row passes for
     images using only None/Sub/Up (Sub is a cumsum mod 256, Up a row add),
     and an anti-diagonal wavefront once Average/Paeth appear — pixel (y,x)
@@ -121,8 +134,11 @@ def _defilter(raw: np.ndarray, height: int, stride: int, channels: int) -> np.nd
     return scan
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit RGB/RGBA/gray non-interlaced PNG → [H, W, C] uint8."""
+def _scanlines(path: str):
+    """The filtered scanlines of an 8-bit RGB/RGBA/gray non-interlaced PNG:
+    ``(raw, (height, width, channels))``, ``raw`` a writable uint8
+    ``[height, 1+stride]`` array (filter byte + payload per row), the
+    defilter's input."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIG:
@@ -148,10 +164,14 @@ def read_png(path: str) -> np.ndarray:
             break
     channels = {0: 1, 2: 3, 4: 2, 6: 4}[color_type]
     raw = np.frombuffer(zlib.decompress(bytes(idat)), np.uint8)
-    stride = width * channels
     # copy: frombuffer views are read-only and the defilter runs in place
-    raw = raw.reshape(height, 1 + stride).copy()
-    scan = _defilter(raw, height, stride, channels)
+    return raw.reshape(height, 1 + width * channels).copy(), (height, width, channels)
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit RGB/RGBA/gray non-interlaced PNG → [H, W, C] uint8."""
+    raw, (height, width, channels) = _scanlines(path)
+    scan = _defilter(raw, height, width * channels, channels)
     return scan.reshape(height, width, channels)
 
 

@@ -1,4 +1,4 @@
-"""BVH construction (host, NumPy) and the stackless device traversal.
+"""BVH construction (host) and the stackless device traversal.
 
 Port of the JAX package's ``ops/bvh.py``. The host build (``FlatBVH``,
 ``build_bvh``) replicates the reference exactly (`src/pathtrace.cu:23-111`):
@@ -7,10 +7,10 @@ box, primitives sorted by centroid (`buildBVHRecursive`, `:52-99`), nodes
 emitted in preorder so the left child is always ``index + 1``, each node
 threaded with a ``miss_link`` (the preorder successor of its subtree). The
 mesh pipeline cuts this tree into the cluster kernel's treelets
-(``ops/cuda/mesh_kernel.treelet_cut``). The NumPy build is the JAX
-package's reference semantics, and the JAX package's tests pin its native
-C++ build equal to it, so this tree equals whichever the JAX package
-builds (loading the native library is ROADMAP Queue 1 item 16).
+(``ops/cuda/mesh_kernel.treelet_cut``). Every tree the package renders
+with comes from the native C++ builder (:func:`try_native_build`, the host
+runtime ``native/``); the NumPy :func:`build_bvh` is its plain version,
+which the tests hold it equal to, node for node and bit for bit.
 
 :class:`BVHIntersector` (``intersector='bvh'``) walks the threaded tree
 with one forward-moving pointer per ray, ``next = hit_box ? (leaf ? miss :
@@ -31,6 +31,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from ..native import runtime
 from ..scene.transforms import unit_cube_world_aabb
 from . import linalg
 from .intersect import _BACKOFF, _MISS, Hit, cube_hit_detail, sphere_hit_detail
@@ -132,6 +133,24 @@ def build_bvh(mins: np.ndarray, maxs: np.ndarray, leaf_size: int = 1) -> FlatBVH
     )
 
 
+def try_native_build(mins: np.ndarray, maxs: np.ndarray, leaf_size: int) -> FlatBVH:
+    """:func:`build_bvh` by the native C++ builder (``native.runtime``):
+    the same tree, its preorder subtree ends as ``miss_link``. Returns the
+    tree or raises: ``RuntimeError`` when the runtime does not build,
+    ``ValueError`` for no primitives. (The JAX function of this name
+    returns ``None`` instead, and its callers fall back to NumPy.)"""
+    bmin, bmax, _left, subtree_end, start, count, order = runtime.build_bvh(
+        mins, maxs, leaf_size)
+    return FlatBVH(
+        bounds_min=bmin,
+        bounds_max=bmax,
+        miss_link=subtree_end,
+        leaf_start=start,
+        leaf_count=count,
+        order=order,
+    )
+
+
 # ─────────────────────────── scene packing ───────────────────────────
 
 
@@ -177,7 +196,7 @@ class BVHIntersector:
         self._has_analytic = (kc + ks) > 0
         if self._has_analytic:
             mins, maxs = scene_analytic_aabbs(scene)
-            bvh = build_bvh(mins, maxs, leaf_size)
+            bvh = try_native_build(mins, maxs, leaf_size)
             self.analytic = _device_bvh(bvh, dev)
             order = torch.as_tensor(bvh.order, dtype=torch.int64, device=dev)
             # primitive tables in BVH leaf order
@@ -195,7 +214,7 @@ class BVHIntersector:
             v0, e1, e2 = host(tri.v0), host(tri.e1), host(tri.e2)
             tmin = np.minimum(np.minimum(v0, v0 + e1), v0 + e2) - 1e-5
             tmax = np.maximum(np.maximum(v0, v0 + e1), v0 + e2) + 1e-5
-            tbvh = build_bvh(tmin, tmax, leaf_size)
+            tbvh = try_native_build(tmin, tmax, leaf_size)
             self.tri_bvh = _device_bvh(tbvh, dev)
             torder = tbvh.order
             to = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731

@@ -28,6 +28,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..native import runtime
+
 _TWO_PI = 6.283185307179586
 _PI = 3.14159265358979323846
 
@@ -51,8 +53,10 @@ class EnvMap:
         return self.img.device
 
 
-def build_envmap(image: np.ndarray, strength: float = 1.0, device="cpu") -> EnvMap:
-    """Table build on the host from an [H, W, 3] linear radiance array."""
+def texel_distribution(image: np.ndarray):
+    """The sampling distribution of an [H, W, 3] linear radiance array:
+    ``(p, pdf)``, the float64 probability of each texel, flattened row-major
+    (sums to 1), and the [H, W] float64 solid-angle pdf of each texel."""
     img = np.asarray(image, np.float32)
     if img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"envmap image must be [H, W, 3], got {img.shape}")
@@ -77,8 +81,17 @@ def build_envmap(image: np.ndarray, strength: float = 1.0, device="cpu") -> EnvM
     total = weights.sum()
     if not np.isfinite(total) or total <= 0.0:
         raise ValueError("envmap has no positive finite luminance")
-    pdf = (weights / total) / omega[:, None]
-    prob, alias = _build_alias(weights.ravel() / total)
+    return weights.ravel() / total, (weights / total) / omega[:, None]
+
+
+def build_envmap(image: np.ndarray, strength: float = 1.0, device="cpu") -> EnvMap:
+    """Table build on the host from an [H, W, 3] linear radiance array: the
+    texel distribution (:func:`texel_distribution`) and its alias table,
+    built by the native runtime (``native.runtime.build_alias``; the Python
+    loop :func:`_build_alias` is its plain version)."""
+    img = np.asarray(image, np.float32)
+    p, pdf = texel_distribution(img)
+    prob, alias = runtime.build_alias(p)
     device = torch.device(device)
     return EnvMap(
         img=torch.as_tensor(img, device=device),
@@ -91,8 +104,10 @@ def build_envmap(image: np.ndarray, strength: float = 1.0, device="cpu") -> EnvM
 
 def _build_alias(p: np.ndarray):
     """Vose's O(n) alias-table construction for the discrete texel
-    distribution ``p`` (sums to 1), with the JAX package's stack order (its
-    native runtime keeps the same order), so the tables are equal."""
+    distribution ``p`` (sums to 1), with the JAX package's stack order, so
+    the tables are equal: the plain version of the native build
+    (``native.runtime.build_alias``), which keeps the same order. A Python
+    loop: seconds for a 2048×4096 map's 8.4M texels."""
     n = p.size
     scaled = p.astype(np.float64) * n
     prob = np.ones(n, np.float64)

@@ -89,6 +89,12 @@ def as_key(seed) -> tuple:
     return prng_key(seed)
 
 
+def render_key(seed) -> tuple:
+    """The render key of a seed (``jax.random.PRNGKey(seed)`` in the JAX
+    package): :func:`as_key` of it."""
+    return as_key(seed)
+
+
 def key_word(seed):
     """The last word of ``seed``'s render key (JAX's ``key_data(key)[-1]``),
     which the hash streams and the LD lattices read: ``k1`` of a key, ``seed
@@ -448,3 +454,13 @@ def ld_nee_bounce_uniforms(seed: int, iteration, pixel_ids, depth: int = 0) -> t
         ],
         dim=-1,
     )
+
+
+def ld_bounce0_uniforms(seed, iteration, pixel_ids) -> torch.Tensor:
+    """Depth-0 :func:`ld_bounce_uniforms`."""
+    return ld_bounce_uniforms(seed, iteration, pixel_ids, 0)
+
+
+def ld_nee0_uniforms(seed, iteration, pixel_ids) -> torch.Tensor:
+    """Depth-0 :func:`ld_nee_bounce_uniforms`."""
+    return ld_nee_bounce_uniforms(seed, iteration, pixel_ids, 0)

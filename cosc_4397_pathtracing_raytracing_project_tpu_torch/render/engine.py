@@ -360,7 +360,7 @@ def make_mesh_intersector(scene: Scene):
     triangles' AABBs, the triangle arrays permuted into its leaf order, the
     clusters and superclusters cut as its subtrees. Its tables live on the
     scene's device and depend on the triangles only."""
-    from ..ops.bvh import build_bvh
+    from ..ops.bvh import try_native_build
     from ..ops.cuda.mesh_kernel import ClusterMeshIntersector
 
     host = lambda t: t.detach().cpu().numpy()  # noqa: E731
@@ -368,7 +368,7 @@ def make_mesh_intersector(scene: Scene):
     v0, e1, e2, mat = host(tri.v0), host(tri.e1), host(tri.e2), host(tri.material_id)
     tmin = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
     tmax = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
-    bvh = build_bvh(tmin, tmax, leaf_size=8)
+    bvh = try_native_build(tmin, tmax, leaf_size=8)
     order = bvh.order
     return ClusterMeshIntersector(
         v0[order], e1[order], e2[order], mat[order], bvh=bvh, device=scene.device,

@@ -24,6 +24,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..native import runtime as native_runtime
 from .structs import CUBE, SPHERE, CameraDesc, Scene, SceneDesc
 from . import transforms
 
@@ -196,7 +197,7 @@ def parse_scene(text: str, base_dir: str = ".") -> SceneDesc:
             if gtype < 0:
                 if mesh_file is None:
                     raise SceneParseError("mesh OBJECT requires a FILE line")
-                verts = load_obj_triangles(os.path.join(base_dir, mesh_file))
+                verts = native_runtime.load_obj_triangles(os.path.join(base_dir, mesh_file))
                 m = transforms.build_transformation_matrix(
                     translation, rotation, scale
                 )
@@ -326,7 +327,9 @@ def load_scene(path: str, device="cuda") -> Scene:
 def load_obj_triangles(path: str) -> np.ndarray:
     """Wavefront OBJ loader: `v` and `f` records, fan-triangulated.
 
-    Returns an (T, 3, 3) float32 array of object-space triangles.
+    Returns an (T, 3, 3) float32 array of object-space triangles. The plain
+    version of the native loader ``native.runtime.load_obj_triangles``,
+    which the parser takes.
     """
     verts: List[List[float]] = []
     tris: List[List[int]] = []

@@ -141,6 +141,7 @@ class PreviewServer:
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._render_thread = None
+        self._serve_thread = None
         self._httpd = None
         self._frame_cache = ((-1, -1), b"")  # (frame key, png)
         self._camera_gen = 0  # bumped on every camera rebuild
@@ -503,13 +504,19 @@ class PreviewServer:
                 pass
             self.stop()
         else:
-            threading.Thread(
+            self._serve_thread = threading.Thread(
                 target=self._httpd.serve_forever, daemon=True
-            ).start()
+            )
+            self._serve_thread.start()
         return self
 
     def stop(self):
         self._stop.set()
+        if self._serve_thread:
+            # end serve_forever before its socket closes: polling a closed
+            # descriptor returns at once, and the thread would spin on it
+            self._httpd.shutdown()
+            self._serve_thread.join(timeout=5)
         if self._httpd:
             self._httpd.server_close()
         if self._render_thread:

@@ -1536,3 +1536,18 @@ def test_cuda_counting_build_on_a_slice_equals_the_warp_schedule(cuda):
                              pixel_offset=offset)
     assert counted == {k: want[k] for k in tmk.WORK}
     assert (want["visits"] == 1).all() and len(owners) == (n + 31) // 32
+
+
+@pytest.mark.cuda
+def test_cuda_entry_matches_the_cpu(cuda):
+    """The single-device entry point's step on the card against the same
+    step on the CPU, 64×64 (the fast pipeline in eager torch on both: the
+    ROADMAP's 0.5% share, as chip_smoke.py's card-vs-CPU gates)."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.entry import entry
+
+    fn, args = entry(resolution=(64, 64))
+    got = fn(*args)
+    assert got.accum.device.type == "cuda" and got.iteration == 1
+    fn, args = entry(device="cpu", resolution=(64, 64))
+    want = fn(*args)
+    assert_within_oracle_tolerance(got.accum.cpu().numpy(), want.accum.numpy())

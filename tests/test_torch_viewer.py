@@ -11,6 +11,7 @@ import json
 import os
 import socket
 import struct
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -100,6 +101,23 @@ def server():
     finally:
         srv.stop()
     assert not srv._render_thread.is_alive()
+
+
+def test_stopped_server_leaves_no_thread_spinning():
+    """stop() ends the HTTP thread: one left polling the closed socket
+    spins a core and takes the interpreter lock from every later call."""
+    desc = parse_scene(CORNELL_SMALL)
+    r = Renderer(desc, RenderConfig(trace_depth=3, samples_per_launch=2), device="cpu")
+    srv = PreviewServer(r, lookat=desc.camera.lookat, host="127.0.0.1", port=0)
+    before = set(threading.enumerate())
+    srv.start(block=False)
+    serving = [t for t in set(threading.enumerate()) - before if "serve_forever" in t.name]
+    assert len(serving) == 1
+    srv.stop()
+    assert not serving[0].is_alive() and not srv._render_thread.is_alive()
+    cpu = time.process_time()
+    time.sleep(0.5)
+    assert time.process_time() - cpu < 0.25, "a thread of the stopped server is still running"
 
 
 def _post(base, msg, headers=None):
