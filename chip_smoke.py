@@ -16,7 +16,7 @@ Phases, in order; any failure raises and exits non-zero:
    card, at the main path's shapes (scenes/cornell.txt, 800×800, depth 8,
    2 spp, and the golden leg's antialiased variant), within the stated
    tolerance; then the time of one 50-sample launch of each, and the bounce
-   loop's SIMT efficiency in that launch: the megakernel's counting build
+   loop's SIMT efficiency in a 10-sample launch: the megakernel's counting build
    against megakernel.warp_schedule's replay of the warps it recorded, on
    the plain version's path lengths (the counts must be equal), beside a
    thread per pixel's on the same paths;
@@ -33,7 +33,7 @@ Phases, in order; any failure raises and exits non-zero:
    bit-identical to early_exit off), (f) throughput on cornell.txt, (g) the
    tile dispatch over 16 tiles with distinct iteration bases; one 50-sample
    launch of kernel and plain version for (a), (c) and (g); for (a), K2's
-   case, and (c) the visibility rays of that launch: the counting build's
+   case, and (c) the visibility rays of a 10-sample launch: the counting build's
    light rays against the plain version's (equal, digit for digit), all its
    counters against the emulation (equal), the light rays' queue (passes,
    their SIMT efficiency, exit passes, rays tested after their pixel was
@@ -63,7 +63,7 @@ Phases, in order; any failure raises and exits non-zero:
    plain version, times and bounds at that size); then one 50-sample launch
    of kernel and plain version of each,
    and for env NEE (K4) and the split composite (K5) the visibility rays of
-   that launch as phase 6 reports K2's; then env NEE's row kernel (its rows
+   a 10-sample launch as phase 6 reports K2's; then env NEE's row kernel (its rows
    and their per-geom table, part of K4) against its plain version at the
    env NEE leg's sizes (a 200-sample step's 1,600 rows and a launch's 400):
    the drawn texels equal, the largest |Δ| of each column (within 1e-6
@@ -102,9 +102,10 @@ Phases, in order; any failure raises and exits non-zero:
    later bounce and on shadow rays;
 17. mesh leg: Renderer(mesh1080p, sky_strength=1.0), warm-up step, then
    render(64) (about 4 s on an H100): rays/s, ms/sample, K7 launches (8 a
-   sample); kernel pipeline against plain pipeline at 1 spp (share of
-   pixels with max-channel |Δ| > 1e-3 ≤ 1e-4, channel means within 1e-4);
-   sort on against sort off (rtol 1e-6, atol 1e-7);
+   sample); kernel pipeline against plain pipeline at 1 spp on a 480x270
+   frame of the same camera (share of pixels with max-channel |Δ| > 1e-3
+   ≤ 1e-4, channel means within 1e-4); sort on against sort off at full
+   size (rtol 1e-6, atol 1e-7);
 18. mesh NEE leg: the same with nee=True (K7 and K8 launches, kernel
    against plain pipeline), and its channel means between the non-NEE
    depth-8 and depth-9 means, 1% slack each side;
@@ -112,28 +113,33 @@ Phases, in order; any failure raises and exits non-zero:
    the warm-up and the rounds each at its own size), the row kernel's line
    (part of K4's row);
 20. the fast pipeline (eager torch, no kernel of its own) on
-   scenes/env_spheres.txt (800x800, depth 8, meadow map) in the three
-   configurations 'auto' routes to it: exact under throughput gathering,
-   an emissive sphere added under nee (the combined area + env NEE), and
-   the map resampled to 512x1024 (past the megakernel's texel budget),
-   each a warm-up sample then render(64): rays/s, ms a sample, torch
+   scenes/env_spheres.txt (800x800, depth 8, meadow map) in three
+   configurations: the two 'auto' routes to it, exact under throughput
+   gathering and an emissive sphere added under nee (the combined area +
+   env NEE), and, named pipeline='fast', the map resampled to 512x1024
+   (which 'auto' renders in the megakernel, phase 27), each a warm-up
+   sample then render(16): rays/s, ms a sample, torch
    kernels a sample and the device's idle share (one more sample under
    torch.profiler); then the card against the CPU, the same code at 1 spp
    on the second configuration at 200x200 (share of pixels with
    max-channel |d| > 1e-3 <= 0.5%, channel means within 0.5%);
 21. golden through pipeline='fast' and pipeline='reference', 1000 spp
-   each: PSNR (floor 34.0 dB, the golden leg's) and rays/s;
+   each, each in a process of its own and both at once (chip_smoke.py
+   --golden-eager <pipeline> <seed>): PSNR (floor 34.0 dB, the golden
+   leg's) and rays/s beside the other process;
 22. the registry's five models (and the wavefront model's two other
    compactions) on scenes/cornell.txt (800x800, depth 8), each a warm-up
-   sample then render(32): rays/s, kernels a sample, idle share; bvh
+   sample then render(8): rays/s, kernels a sample, idle share (the
+   megakernel model's a lower bound, its ctypes calls timed by CUDA
+   events, as in phase 27); bvh
    against naive (share of pixels > 1e-3 below 2%, means within 2%,
    tests/test_bvh.py's bound), each compaction and wavefront against naive
    (rtol = atol = 1e-5, tests/test_models.py's);
 23. the reference pipeline on mesh1080p.txt with the meadow map, which
    'auto' routes to 'reference' with the BVH (triangles through K7), without
-   and with nee, each a warm-up sample then render(16): rays/s, ms a
-   sample, K7 launches a sample (at least one), idle share; then at 480x270
-   and 1 spp, triangles through K7 against the threaded BVH walk on the
+   and with nee, each a warm-up sample then render(4): rays/s, ms a
+   sample, K7 launches a sample (at least one), idle share; then at 240x135,
+   depth 3 and 1 spp, triangles through K7 against the threaded BVH walk on the
    card (tri_method='while'), tests/test_bvh.py's bound;
 24. the command line on the card, each run a `python -m
    cosc_4397_pathtracing_raytracing_project_tpu_torch` subprocess with the
@@ -147,13 +153,14 @@ Phases, in order; any failure raises and exits non-zero:
    uninterrupted library render(200), in the JAX package's npz fields; (d)
    --adaptive --iterations 64 --denoise --checkpoint (K6) writes the
    adaptive fields; (e) the denoiser on the card against its CPU version:
-   render_aovs on cornell.txt at 800x800 and mesh1080p.txt at 160x90 (miss
+   render_aovs on cornell.txt at 800x800 and mesh1080p.txt at 96x54 (miss
    masks identical, the rest within 1e-4 but on at most 0.5% of pixels,
    each reproduced on the CPU with the card's sqrt, or an exact tie) and
    atrous_denoise on the same inputs within 1e-4; (f) the card's times of
    render_aovs on cornell at 800x800 and of atrous_denoise at 800x800
    (median of 5 after a warm-up), of render_aovs on mesh1080p at 1920x1080
-   (median of 3, warmed by (e)), and profile_pipeline on cornell.txt; (g) the preview server on the card:
+   (one pass, warmed by (e)), and profile_pipeline on cornell.txt; (g) the
+   preview server on the card:
    two frames, an orbit that resets the iteration, the denoise toggle's
    frame; and the phase's time;
 25. multi-device rendering (parallel/), every rank a process on this one
@@ -189,20 +196,38 @@ Phases, in order; any failure raises and exits non-zero:
    2048x4096 map (env_spheres' meadow with each texel repeated 16 x 16):
    its alias table native against the plain Python loop (bit for bit), both
    times, build_envmap's tables the native ones; then env_spheres.txt under
-   that map (the fast pipeline: past the megakernel's texel budget), exact
-   and with env NEE, a warm-up sample then render(4): rays/s, a finite
-   frame; (d) the golden image written by the native PNG writer reads back
-   equal, and tests/data/REFERENCE_cornell.5000samp.png's rows through the
-   native defilter equal the NumPy path's; (e) entry() (the fast pipeline:
-   cornell.txt, sobol, one sample) at 200x200 on the card against the same
-   call on the CPU (phase 20's bound), then at full size on the card: one
-   call's seconds after a warm-up and a finite accumulator there;
+   that map on the fast pipeline (named: 'auto' takes the megakernel, phase
+   27), exact and with env NEE, a warm-up sample then render(4): rays/s, a
+   finite frame; (d) the golden image written by the native PNG writer
+   reads back equal, and tests/data/REFERENCE_cornell.5000samp.png's rows
+   through the native defilter equal the NumPy path's; (e) entry() (the
+   fast pipeline: cornell.txt, sobol, one sample) at 200x200 on the card
+   against the same call on the CPU (phase 20's bound), then at full size
+   on the card: one call's seconds after a warm-up and a finite accumulator
+   there;
+27. exact maps past the JAX kernel's 256x512 VMEM cap in the megakernel:
+   env_spheres.txt (800x800, depth 8) under phase 20's 512x1024 map and
+   phase 26's 2048x4096 map (built once there), each: K3 and K4 against
+   their plain versions at 2 spp (K3 bit for bit, K4 within the
+   kernel-vs-plain bound), one 50-sample launch of each (kernel, plain
+   version, the bound with the map's bytes once, 12 a texel and 16 with
+   env NEE's pdf, and with its bytes counted per lookup, 48 a lookup and 4
+   a pdf lookup), K6 at the environment
+   adaptive leg's round against its plain version (bit for bit, times,
+   both bounds); the Renderer through pipeline='auto' (which must take
+   'pallas') in exact mode and with env NEE, render(1000) after a warm-up
+   step: rays/s, launches, a lower bound on the device's idle share of one
+   more render(1000) (1 - its kernels' ctypes calls, each timed by CUDA
+   events, over its wall); the AdaptiveRenderer in exact mode, render(256)
+   (K6 launched, every tile at least 64 spp);
 then one JSON
    line describing each ported kernel (K6's times and bound are the
    round's; K7's and K8's are the sums over one mesh pipeline sample's
    launches, whose count 'launches_per_sample' gives; K7's
    'reference_pipeline' holds phase 23's launches, their count a sample and
-   K7's device ms a sample there, per leg), the card, the result line.
+   K7's device ms a sample there, per leg; K3, K4 and K6 once more for each
+   of phase 27's maps, '@<size>' in the name, with its legs' launches and
+   'lookup_bound_ms'), the card, the result line.
 
 Every leg sets the launch counts to 0 just before it and reads them just
 after; a leg whose kernel variant was never launched fails. Phases 1-15 are
@@ -213,9 +238,9 @@ subprocesses; the launches of its library and server runs are read here),
 25 the multi-device paths' (K1-K6 through the sharded megakernel step and
 the tile-sharded adaptive dispatch, K7/K8 through the sharded mesh step;
 each rank process reports its own launches), 26 the host runtime's (no
-kernel: host C++ and the eager fast pipeline). It needs a CUDA device and
-the repository's files: without either it fails before printing any
-result.
+kernel: host C++ and the eager fast pipeline), 27 K3's, K4's and K6's at
+the larger maps. It needs a CUDA device and the repository's files:
+without either it fails before printing any result.
 """
 
 import contextlib
@@ -238,6 +263,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # mean gap of 2.5e-5
 MAX_SHARE_OVER_1E3 = 1e-4
 MEAN_RTOL = 1e-4
+# samples of the full-frame launches whose counting build is held to
+# megakernel.warp_schedule's emulation: the emulation steps the warps in
+# Python, ~1 s a sample at 800x800 (phases 2, 6 and 10)
+SCHEDULE_SPP = 10
 # golden PSNR floors (the JAX reference scored 34.63 / 37.91 dB)
 PSNR_FLOOR_1000 = 34.0
 PSNR_FLOOR_5000 = 37.3
@@ -297,11 +326,12 @@ FLOPS_NORMALIZE = 11
 FLOPS_SCATTER = 70
 FLOPS_NEE = 75
 # environment work: one escape lookup (two polynomial atan2s, the bilinear
-# blend), the nearest-texel pdf lookup, one SH-9 sky evaluation, and the
-# shading arithmetic of an env NEE / sun shadow ray beside its per-geom
-# tests
+# blend), the nearest-texel pdf lookup (its texel coordinates: the kernel
+# takes the direction's (u, v) from the escape lookup), one SH-9 sky
+# evaluation, and the shading arithmetic of an env NEE / sun shadow ray
+# beside its per-geom tests
 FLOPS_ENV_LOOKUP = 96
-FLOPS_ENV_PDF = 61
+FLOPS_ENV_PDF = 2
 FLOPS_SH9 = 74
 FLOPS_ENV_NEE = 27
 FLOPS_SUN = 17
@@ -337,6 +367,10 @@ MESH_SORT_ATOL = 1e-7
 # 32 samples on mesh1080p: heavy-tailed BRDF-sampled hits of the light; the
 # NEE means stay within 1e-5)
 MESH_SPP = 64
+# the mesh legs' kernel-against-plain pipeline sample: a 480x270 frame of
+# the same camera (phase 16 holds K7/K8 to their plain version on every ray
+# of a full-size sample; the plain pipeline takes ~20 s a sample there)
+MESH_GATE_RES = (480, 270)
 
 # the eager pipelines (phases 20-23). Card against CPU, the same port code:
 # the ROADMAP's oracle bound (torch's CPU and CUDA math round differently);
@@ -348,11 +382,19 @@ ORACLE_MEAN_RTOL = 0.005
 BVH_SHARE = 0.02
 BVH_MEAN_RTOL = 0.02
 WAVEFRONT_TOL = 1e-5
-FAST_SPP = 64
+# samples of the eager legs: each is host-bound at 75-1000 ms a sample on
+# an H100, so they stay few and the script inside its time limit
+FAST_SPP = 16
 FAST_GATE_RES = 200
 GOLDEN_EAGER_SPP = 1000
-MODEL_SPP = 32
-MESH_ENV_SPP = 16
+GOLDEN_EAGER_TIMEOUT = 600
+MODEL_SPP = 8
+MESH_ENV_SPP = 4
+# phase 23's K7 against the threaded BVH walk: 'while' syncs the host at
+# every step of its walk (17-19 s at depth 8 on an H100, at 480x270 as at
+# 240x135), so the gate renders a smaller frame to depth 3
+MESH_WHILE_RES = (240, 135)
+MESH_WHILE_DEPTH = 3
 # phase 20 (b): env_spheres with one emissive sphere
 EMITTER_MATERIAL = """// emitter
 MATERIAL 4
@@ -384,8 +426,10 @@ SCALE       .8 .8 .8
 DENOISE_GAIN_DB = 3.0
 AOV_TOL = 1e-4
 # a mesh1080p AOV pass takes ~28 s on an H100 at 700 W, and five passed
-# within 0.08% of each other: three keep the script inside its time limit
-MESH_AOV_REPS = 3
+# within 0.08% of each other: one keeps the script inside its time limit
+MESH_AOV_REPS = 1
+# the denoiser's mesh AOVs card against CPU (the CPU's pass ~4 ms a pixel)
+MESH_AOV_GATE_RES = (96, 54)
 SERVER_SPP = 64
 CLI_TIMEOUT = 600
 
@@ -423,7 +467,7 @@ MD_SP_ATOL = 1e-6
 
 # phase 26, the host runtime and the single-device entry point: the map of
 # (c), the meadow with each texel repeated 16 x 16 (2048x4096, 8.4M texels:
-# a production-size HDR, past the megakernel's texel budget), its renders'
+# a production-size HDR, 64 times the JAX kernel's cap), its renders'
 # samples, and the size of entry()'s card-against-CPU gate (phase 20's)
 HOST_MAP_REPEAT = 16
 HOST_ENV_SPP = 4
@@ -487,8 +531,8 @@ def _time_dispatch(what, pk, opts, device, seed, dispatch):
                                       tiles=(table, tpx, tpy)), reps=3)
     p_ms = _time_ms(lambda: mk.render_tiles_reference(tpx, tpy, ids, bases, pk, opts, seed,
                                                       samples), reps=1)
-    env_bytes = pk.env.height * pk.env.width * 16 if opts.env == "exact" else 0
-    bnd = _bound(pk, opts, w, tpx.numel() * 12, tpx.numel() * 8 + table.numel() * 4 + env_bytes)
+    bnd = _bound(pk, opts, w, tpx.numel() * 12,
+                 tpx.numel() * 8 + table.numel() * 4 + _map_bytes(pk, opts))
     print(f"  {what}: one {samples}-sample launch over {ids.numel()} tile slots "
           f"({tpx.numel()} lanes; queue items of "
           f"{mk.tile_group(tpx.numel(), samples, device)} samples): kernel {k_ms:.4f} ms, "
@@ -537,6 +581,15 @@ def _golden_psnr(img, ref_img):
 
     mine = np.clip(img, 0, 1)[:, ::-1, :]
     return 10.0 * math.log10(1.0 / float(((mine - ref_img) ** 2).mean()))
+
+
+def _map_bytes(packed, opts):
+    """The exact map's bytes the launch must read once: 12 a texel (the
+    strength-folded radiance), 16 where env NEE's MIS reads the sampler's
+    pdf too (K4); none in other modes."""
+    if opts.env != "exact":
+        return 0
+    return packed.env.height * packed.env.width * (16 if opts.env_nee else 12)
 
 
 def _bound(packed, opts, work, out_bytes, in_bytes, shared=True, env_rows=0):
@@ -623,7 +676,8 @@ def _visibility(what, pk, opts, device, seed, n, stats, old_bound, new_bound, ti
             for kind in ("env", "sun") if counted[f"{kind}_warps"]}
     if counted["light_passes"]:
         simt["light"] = round(counted["light_pass_lanes"] / (32 * counted["light_passes"]), 4)
-    print(f"  {what}: visibility rays, counting build {[counted[k] for k in plain]} (light, env, "
+    print(f"  {what}: visibility rays of a {n}-sample launch, counting build "
+          f"{[counted[k] for k in plain]} (light, env, "
           f"sun), plain version {list(plain.values())}; warp iterations carrying them "
           f"{[counted[k] for k in ('light_warps', 'env_warps', 'sun_warps')]}, SIMT efficiency "
           f"{simt}, sun rays a lane {counted['sun_rays'] / max(counted['sun_lanes'], 1):.3f}; "
@@ -631,7 +685,8 @@ def _visibility(what, pk, opts, device, seed, n, stats, old_bound, new_bound, ti
           f"at exit, {counted['light_late']} rays late (their term to out[p]); "
           f"steps added for the last vertex's rays {em['added']}; loop SIMT efficiency "
           f"{counted['lane_iters'] / (32 * counted['warp_iters']):.4f}; counting build = emulation "
-          f"{counted == {k: em[k] for k in mk.WORK}}; bound {old_bound[0]:.4f} ms as counted "
+          f"{counted == {k: em[k] for k in mk.WORK}}; the timed launch's bound {old_bound[0]:.4f} "
+          f"ms as counted "
           f"with the rays traced alone, {new_bound[0]:.4f} ms with the design's shared work "
           f"({new_bound[1]})")
     if any(counted[k] != v for k, v in plain.items()):
@@ -719,7 +774,8 @@ def _mesh_phases(device, seed, scene_path):
     mesh_path = scene_path("mesh1080p.txt")
     print("[16] mesh kernels K7/K8 vs plain version, mesh1080p.txt 1920x1080, depth 8")
     t0 = time.perf_counter()
-    scene = Scene.from_desc(load_scene_desc(mesh_path), device)
+    desc = load_scene_desc(mesh_path)
+    scene = Scene.from_desc(desc, device)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -850,8 +906,14 @@ def _mesh_phases(device, seed, scene_path):
         cluster = r._step.cluster
         ls = make_light_sampler(r.scene) if cfg.nee else None
         k_img = fast.trace_sample_mesh(r.scene, cfg, seed, 1, cluster, light_sampler=ls)
-        p_img = fast.trace_sample_mesh(r.scene, cfg, seed, 1, cluster.plain(), light_sampler=ls)
-        _check_close(k_img, p_img, f"{name}: kernel pipeline vs plain pipeline, 1 spp")
+        # the plain pipeline on a smaller frame of the same camera and
+        # triangles (the intersector's tables depend on the triangles only)
+        gate = Scene.from_desc(dataclasses.replace(desc, camera=dataclasses.replace(
+            desc.camera, resolution=MESH_GATE_RES)), device)
+        _check_close(fast.trace_sample_mesh(gate, cfg, seed, 1, cluster, light_sampler=ls),
+                     fast.trace_sample_mesh(gate, cfg, seed, 1, cluster.plain(), light_sampler=ls),
+                     f"{name}: kernel pipeline vs plain pipeline, 1 spp at "
+                     f"{MESH_GATE_RES[0]}x{MESH_GATE_RES[1]}")
         unsorted = fast.trace_sample_mesh(
             r.scene, dataclasses.replace(cfg, mesh_ray_sort=False), seed, 1, cluster,
             light_sampler=ls)
@@ -934,13 +996,16 @@ def _eager_leg(what, r, spp, kernel=None, part=None):
     img = r.linear_image()
     accum = r.state.accum.clone()
     idle, kernels, part_ms = _profile_kernels(lambda: r.step(1), part)
+    idle_how = "idle share"
+    if r.pipeline == "pallas":  # the profiler misses the ctypes kernels here
+        idle, idle_how = _launch_idle_share(lambda: r.step(1)), "idle share at least"
     pixels = r.scene.camera.pixel_count
     out = dict(rays_per_s=pixels * spp / wall, ms_per_sample=wall / spp * 1e3,
                kernels_per_sample=kernels, idle_share=idle, launches=launches, img=img,
                accum=accum, pipeline=r.pipeline, part_ms=part_ms)
     print(f"  {what} ({r.pipeline}): warm-up sample {warm:.3f} s; render({spp}) "
           f"{out['rays_per_s']:.6e} rays/s, {out['ms_per_sample']:.3f} ms/sample; "
-          f"{kernels} torch kernels a sample, idle share {idle:.4f}"
+          f"{kernels} torch kernels a sample, {idle_how} {idle:.4f}"
           + ("" if kernel is None else f"; launches {launches}") + f"; mean {img.mean():.6f}")
     if not (np.isfinite(img).all() and img.mean() > 0.0):
         raise AssertionError(f"{what}: the image is not finite or black")
@@ -951,13 +1016,12 @@ FAST_NEE_LEG = "(b) + emissive sphere, nee"
 
 
 def fast_legs_scenes(scene_path):
-    """Phase 20's configurations, each a (SceneDesc, RenderConfig) that
-    'auto' routes to the fast pipeline: env_spheres.txt under throughput
-    gathering, with an emissive sphere added under nee (the combined NEE),
-    and with its map resampled (each texel repeated 4 x 4) past the
-    megakernel's texel budget."""
-    import numpy as np
-
+    """Phase 20's configurations, each a (SceneDesc, RenderConfig) on the
+    fast pipeline: env_spheres.txt under throughput gathering and with an
+    emissive sphere added under nee (the combined NEE), both of which 'auto'
+    routes there, and with its map resampled (each texel repeated 4 x 4),
+    which 'auto' renders in the megakernel (phase 27) and which is named
+    pipeline='fast' here, as the eager pipeline's leg at a larger map."""
     from cosc_4397_pathtracing_raytracing_project_tpu_torch import RenderConfig, parse_scene
 
     scenes_dir = os.path.dirname(scene_path("env_spheres.txt"))
@@ -965,13 +1029,28 @@ def fast_legs_scenes(scene_path):
     lit_text = env_text.replace("\nENVIRONMENT\n", "\n" + EMITTER_MATERIAL + "ENVIRONMENT\n",
                                 1) + EMITTER_OBJECT
     desc = parse_scene(env_text, base_dir=scenes_dir)
-    big = dataclasses.replace(desc, env_image=np.repeat(np.repeat(desc.env_image, 4, 0), 4, 1))
+    big = big_map_desc(scene_path, 4)
     return {
         "(a) exact + throughput": (desc, RenderConfig(gather_mode="throughput")),
         FAST_NEE_LEG: (parse_scene(lit_text, base_dir=scenes_dir), RenderConfig(nee=True)),
         f"(c) map resampled to {big.env_image.shape[0]}x{big.env_image.shape[1]}, exact":
-            (big, RenderConfig()),
+            (big, RenderConfig(pipeline="fast")),
     }
+
+
+def big_map_desc(scene_path, repeat):
+    """env_spheres.txt (800x800, depth 8) with the meadow map's texels each
+    repeated ``repeat`` x ``repeat``: 512x1024 at 4 (6.3 MB of radiance,
+    inside the 50 MB L2), 2048x4096 at 16 (100.7 MB, a production-size
+    HDR past the L2)."""
+    import numpy as np
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import parse_scene
+
+    desc = parse_scene(open(scene_path("env_spheres.txt")).read(),
+                       base_dir=os.path.dirname(scene_path("env_spheres.txt")))
+    return dataclasses.replace(desc, env_image=np.repeat(np.repeat(
+        desc.env_image, repeat, 0), repeat, 1))
 
 
 def mesh_env_text(scene_path):
@@ -986,6 +1065,7 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
     models, and a mesh with a map on the reference pipeline's BVH (K7).
     Returns, for each of phase 23's legs, K7's launches in its timed run,
     their count a sample and K7's device ms a sample."""
+    import numpy as np
     import torch
 
     from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
@@ -1001,9 +1081,11 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.bvh import BVHIntersector
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as mesh
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.tonemap import mean_image
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import trace_sample
 
     scenes_dir = os.path.dirname(scene_path("cornell.txt"))
+    t_phase = time.perf_counter()
     print(f"[20] fast pipeline legs: env_spheres.txt 800x800, depth 8, meadow map, "
           f"render({FAST_SPP}) ({smi})")
     legs = fast_legs_scenes(scene_path)
@@ -1011,7 +1093,7 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
     for what, (d, cfg) in legs.items():
         r = Renderer(d, cfg, seed=seed, device=device)
         if r.pipeline != "fast":
-            raise AssertionError(f"{what} routed to {r.pipeline!r}, not 'fast'")
+            raise AssertionError(f"{what} took {r.pipeline!r}, not 'fast'")
         fast_legs[what] = _eager_leg(what, r, FAST_SPP)
     lit = legs[FAST_NEE_LEG][0]
     small = dataclasses.replace(lit, camera=dataclasses.replace(
@@ -1028,23 +1110,53 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
     if share > ORACLE_SHARE or mean_rel > ORACLE_MEAN_RTOL:
         raise AssertionError("the fast pipeline on the card disagrees with the CPU")
 
+    print(f"  phase [20] {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     print(f"[21] golden through the eager pipelines: cornell_golden.txt, antialias, sobol, "
-          f"{GOLDEN_EAGER_SPP} spp")
+          f"{GOLDEN_EAGER_SPP} spp; each pipeline's samples in two halves, the four halves "
+          f"each a process of its own, all at once")
+    # host-bound, with the card idle half the time: processes on the one
+    # card overlap. Every sample is keyed by its iteration index, so the
+    # halves' accumulators sum to the whole render's (up to the order of
+    # the float additions)
+    out_dir = os.path.join(REPO, "build", "golden_eager")
+    os.makedirs(out_dir, exist_ok=True)
+    half = GOLDEN_EAGER_SPP // 2
+    parts = {(pipeline, first): os.path.join(out_dir, f"{pipeline}_{first}.npy")
+             for pipeline in ("fast", "reference") for first in (0, half)}
+    procs = {key: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--golden-eager", key[0], str(seed),
+         str(key[1]), str(key[1] + half), path],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for key, path in parts.items()}
+    walls = {}
+    try:
+        for key, proc in procs.items():
+            out, _ = proc.communicate(timeout=GOLDEN_EAGER_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(f"pipeline={key[0]!r}'s golden process exited "
+                                     f"{proc.returncode}:\n{out[-4000:]}")
+            walls[key] = float(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     golden = {}
     for pipeline in ("fast", "reference"):
-        r = Renderer(scene_path("cornell_golden.txt"),
-                     RenderConfig(antialias=True, sampler="sobol", pipeline=pipeline,
-                                  samples_per_launch=50), seed=seed, device=device)
-        t0 = time.perf_counter()
-        r.render(GOLDEN_EAGER_SPP)
-        wall = time.perf_counter() - t0
-        psnr = _golden_psnr(r.linear_image(), ref_img)
-        rays = r.scene.camera.pixel_count * GOLDEN_EAGER_SPP / wall
-        golden[pipeline] = dict(psnr=psnr, rays_per_s=rays)
-        print(f"  {pipeline}: PSNR {psnr:.4f} dB (floor {PSNR_FLOOR_1000}), {rays:.6e} rays/s, "
-              f"{wall / GOLDEN_EAGER_SPP * 1e3:.3f} ms/sample")
+        accum = sum(torch.from_numpy(np.load(parts[pipeline, first])) for first in (0, half))
+        img = mean_image(accum, GOLDEN_EAGER_SPP).numpy().reshape(ref_img.shape)
+        psnr = _golden_psnr(img, ref_img)
+        wall = max(walls[pipeline, first] for first in (0, half))
+        golden[pipeline] = dict(psnr=psnr, rays_per_s=accum.shape[0] * GOLDEN_EAGER_SPP / wall)
+        print(f"  {pipeline}: PSNR {psnr:.4f} dB (floor {PSNR_FLOOR_1000}), "
+              f"{golden[pipeline]['rays_per_s']:.6e} rays/s (the slower half's wall); each "
+              f"half's ms a sample {', '.join(f'{walls[pipeline, f] / half * 1e3:.3f}' for f in (0, half))}"
+              f" (four processes on the card)")
         if psnr < PSNR_FLOOR_1000:
             raise AssertionError(f"golden PSNR through pipeline={pipeline!r} below its floor")
+    print(f"  phase [21] {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     print(f"[22] the registry's models: cornell.txt 800x800, depth 8, render({MODEL_SPP})")
     models = {}
@@ -1069,6 +1181,8 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
         print(f"  {name} vs {other}: max |d| {gap:.3e} (rtol = atol = {WAVEFRONT_TOL})")
         torch.testing.assert_close(models[name]["accum"], models[other]["accum"],
                                    rtol=WAVEFRONT_TOL, atol=WAVEFRONT_TOL)
+    print(f"  phase [22] {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     print(f"[23] mesh + environment on the reference pipeline: mesh1080p.txt with the meadow "
           f"map, render({MESH_ENV_SPP})")
@@ -1089,10 +1203,11 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
         k7[what] = dict(launches=full, launches_per_sample=full / MESH_ENV_SPP,
                         ms_per_sample=leg["part_ms"])
         mesh_env[what] = leg
-    gate_desc = parse_scene(mesh_text.replace("RES         1920 1080", "RES         480 270"),
+    gate_desc = parse_scene(mesh_text.replace("RES         1920 1080",
+                                              "RES         {} {}".format(*MESH_WHILE_RES)),
                             base_dir=scenes_dir)
     gate_scene = Scene.from_desc(gate_desc, device)
-    cfg = RenderConfig()
+    cfg = RenderConfig(trace_depth=MESH_WHILE_DEPTH)
     out = {}
     for method in ("cluster", "while"):
         isect = BVHIntersector(gate_scene, leaf_size=cfg.bvh_leaf_size, tri_method=method)
@@ -1100,7 +1215,8 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
         t0 = time.perf_counter()
         out[method] = trace_sample(gate_scene, cfg, seed, 1, isect).cpu()
         torch.cuda.synchronize()
-        print(f"  480x270, 1 spp, triangles through {method}: {time.perf_counter() - t0:.3f} s, "
+        print(f"  {MESH_WHILE_RES[0]}x{MESH_WHILE_RES[1]}, depth {MESH_WHILE_DEPTH}, 1 spp, "
+              f"triangles through {method}: {time.perf_counter() - t0:.3f} s, "
               f"K7 launches {mesh.KERNEL.launches}")
         if (method == "cluster") != (mesh.KERNEL.launches > 0):
             raise AssertionError(f"tri_method={method!r} launched K7 {mesh.KERNEL.launches} times")
@@ -1117,7 +1233,33 @@ def _pipeline_phases(device, seed, scene_path, ref_img, smi):
         mesh_env={k: {f: v for f, v in leg.items() if f not in drop}
                   for k, leg in mesh_env.items()})
     print("eager pipelines: " + json.dumps(readings))
+    print(f"  phase [23] {time.perf_counter() - t_phase:.1f} s")
     return k7
+
+
+def _golden_eager(pipeline, seed, first, last, out):
+    """Part of phase 21 in a process of its own (``chip_smoke.py
+    --golden-eager <pipeline> <seed> <first> <last> <out.npy>``): the
+    golden's samples ``first + 1`` to ``last`` through ``pipeline`` on the
+    card; saves their accumulator to ``out`` and prints the render's wall
+    seconds."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import RenderConfig, Renderer
+
+    r = Renderer(os.path.join(REPO, "scenes", "cornell_golden.txt"),
+                 RenderConfig(antialias=True, sampler="sobol", pipeline=pipeline,
+                              samples_per_launch=50), seed=seed, device=torch.device("cuda", 0))
+    r.state = dataclasses.replace(r.state, iteration=first)
+    r._host_iteration = first
+    t0 = time.perf_counter()
+    r.render(last)
+    wall = time.perf_counter() - t0
+    np.save(out, r.state.accum.cpu().numpy())
+    print(wall)
+    return 0
 
 
 def _cli(args):
@@ -1468,7 +1610,6 @@ def _host_runtime_phase(device, seed, scene_path, host_build, smi):
         Renderer,
         Scene,
         load_scene_desc,
-        parse_scene,
     )
     from cosc_4397_pathtracing_raytracing_project_tpu_torch import entry as entry_mod
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.io import png
@@ -1526,12 +1667,9 @@ def _host_runtime_phase(device, seed, scene_path, host_build, smi):
         raise AssertionError(f"the native BVH differs from the plain build in {differ}")
 
     # (c) a 2048x4096 map: its alias table native against plain, then
-    # env_spheres under it (past the megakernel's texel budget: the fast
-    # pipeline) in exact mode and with env NEE
-    scenes_dir = os.path.dirname(scene_path("env_spheres.txt"))
-    desc = parse_scene(open(scene_path("env_spheres.txt")).read(), base_dir=scenes_dir)
-    big = dataclasses.replace(desc, env_image=np.repeat(np.repeat(
-        desc.env_image, HOST_MAP_REPEAT, 0), HOST_MAP_REPEAT, 1))
+    # env_spheres under it on the fast pipeline (named: 'auto' takes the
+    # megakernel, phase 27) in exact mode and with env NEE
+    big = big_map_desc(scene_path, HOST_MAP_REPEAT)
     (p, _), dist_s = timed(envmap.texel_distribution, big.env_image)
     (prob, alias), native_s = timed(runtime.build_alias, p)
     (pprob, palias), plain_s = timed(envmap._build_alias, p)
@@ -1548,10 +1686,11 @@ def _host_runtime_phase(device, seed, scene_path, host_build, smi):
     if not (same and same_env):
         raise AssertionError("the native alias table disagrees with the plain one")
     del env, p, prob, alias, pprob, palias
-    for what, cfg in (("exact", RenderConfig()), ("env NEE", RenderConfig(nee=True))):
+    for what, cfg in (("exact", RenderConfig(pipeline="fast")),
+                      ("env NEE", RenderConfig(nee=True, pipeline="fast"))):
         r, setup_s = timed(Renderer, big, cfg, seed, device)
         if r.pipeline != "fast":
-            raise AssertionError(f"the {h}x{w} map ({what}) routed to {r.pipeline!r}, not 'fast'")
+            raise AssertionError(f"the {h}x{w} map ({what}) took {r.pipeline!r}, not 'fast'")
         r.step(1)  # warm-up
         r.reset()
         t0 = time.perf_counter()
@@ -1613,6 +1752,203 @@ def _host_runtime_phase(device, seed, scene_path, host_build, smi):
             and bool(torch.isfinite(out.accum).all()) and float(out.accum.mean()) > 0.0):
         raise AssertionError("entry()'s accumulator is not a finite frame on the card")
     print(f"  phase [26] {time.perf_counter() - t_phase:.1f} s")
+    return big
+
+
+def _launch_idle_share(fn):
+    """A lower bound on the device's idle share of the wall of one run of
+    ``fn``, timed without torch.profiler: 1 - (the megakernel's and the row
+    kernel's launches, each between CUDA events recorded on the current
+    stream just before and after its ctypes call) / the wall. A call's own
+    host work (argument conversion, the C entry's checks, the queue's memset
+    and the launch, microseconds) counts as busy when the card waits on it,
+    and the torch kernels of a step (the accumulator's add) as idle. Late
+    in this script torch.profiler no longer reports the ctypes kernels'
+    device time (phase 22's megakernel model read an idle share of 1 under
+    it), so phases 22 and 27 take this."""
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+
+    mk.KERNEL._fn()  # loads the library
+    lib = mk.KERNEL._lib
+    names = ("pt_megakernel_launch", "pt_env_rows_launch")
+    originals = {name: getattr(lib, name) for name in names}
+    spans = []
+
+    def timed(call):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                return call(*args)
+            finally:
+                stop.record()
+                spans.append((start, stop))
+        return run
+
+    for name, call in originals.items():
+        setattr(lib, name, timed(call))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, call in originals.items():
+            setattr(lib, name, call)
+    if not spans:
+        raise AssertionError("no megakernel or row kernel launch was timed")
+    busy = sum(start.elapsed_time(stop) for start, stop in spans) * 1e-3
+    return 1.0 - busy / wall
+
+
+def _lookup_bound(packed, opts, work, out_bytes, other_bytes, env_rows=0):
+    """The bound with the map's bytes counted per lookup, not once: every
+    escape's bilinear lookup reads its four texels at 12 bytes (the
+    radiance) and K4's pdf lookup its texel's 4 bytes, from the plain
+    version's counts of this run (``work``), beside ``other_bytes``."""
+    lookup_bytes = 48 * int(work.get("env_lookup", 0)) + 4 * int(work.get("env_pdf", 0))
+    return _bound(packed, opts, work, out_bytes, other_bytes + lookup_bytes, env_rows=env_rows)
+
+
+def _big_map_phase(device, seed, chunk, scene_path, big, smi):
+    """Phase 27: exact maps past the JAX kernel's VMEM cap render in the
+    megakernel. ``big`` is phase 26's 2048x4096 map (its SceneDesc); the
+    512x1024 map is phase 20's. Returns, per map, K3's, K4's and K6's
+    readings for the kernels line."""
+    import numpy as np
+    import torch
+
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import (
+        AdaptiveRenderer,
+        RenderConfig,
+        Renderer,
+        Scene,
+    )
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
+
+    t_phase = time.perf_counter()
+    print(f"[27] exact maps past the JAX kernel's cap in the megakernel: env_spheres.txt "
+          f"800x800, depth 8 ({smi})")
+    out = {}
+    for desc in (big_map_desc(scene_path, 4), big):
+        h, w = desc.env_image.shape[:2]
+        size = f"{h}x{w}"
+        scene = Scene.from_desc(desc, device)
+        pix = torch.arange(scene.camera.pixel_count, device=device)
+        res = {}
+        # K3 and K4 against their plain versions at 2 spp (K3 bit for bit),
+        # then one 50-sample launch of each: times and bounds
+        for key, cfg in (("K3", RenderConfig()), ("K4", RenderConfig(nee=True))):
+            opts = mk.kernel_options(cfg, scene)
+            pk = mk.pack_scene(scene, config=cfg)
+            rows2 = mk.env_nee_rows(pk, seed, 1, 2, opts.trace_depth) if opts.env_nee else None
+            got = mk.KERNEL(pk, opts, seed, 1, 2, device, env_rows=rows2)
+            want = mk.render_samples_reference(pix, pk, opts, seed, 1, 2, env_rows=rows2)
+            err = _check_close(got, want, f"{size} {key} [{mk.variant_name(opts)}], 2 spp")
+            if key == "K3" and not torch.equal(got, want):
+                raise AssertionError(f"K3 at {size} is not bit for bit its plain version")
+            del got, want
+            n_rows = chunk * opts.trace_depth if opts.env_nee else 0
+            rows = mk.env_nee_rows(pk, seed, 1, chunk, opts.trace_depth) if n_rows else None
+            k_ms = _time_ms(lambda: mk.KERNEL(pk, opts, seed, 1, chunk, device, env_rows=rows),
+                            reps=3)
+            work = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mk.render_samples_reference(pix, pk, opts, seed, 1, chunk, env_rows=rows, stats=work)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+            other = n_rows * (8 + 6 * pk.num_geoms) * 4
+            bnd = _bound(pk, opts, work, pix.numel() * 12, _map_bytes(pk, opts) + other,
+                         env_rows=n_rows)
+            lbnd = _lookup_bound(pk, opts, work, pix.numel() * 12, other, env_rows=n_rows)
+            res[key] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound=bnd, lookup_bound=lbnd,
+                            lookups=int(work.get("env_lookup", 0)))
+            print(f"  {size} {key}: one {chunk}-sample launch: kernel {k_ms:.4f} ms, plain "
+                  f"version {p_ms:.1f} ms (one run, counting its work); bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}; the map's {_map_bytes(pk, opts)} bytes once); with the map's bytes "
+                  f"counted per lookup ({res[key]['lookups']} lookups x 48 bytes"
+                  + (f" + {int(work.get('env_pdf', 0))} pdf lookups x 4" if opts.env_nee else "")
+                  + f") {lbnd[0]:.4f} ms ({lbnd[1]})")
+            del work
+        # K6 at the environment adaptive leg's round (bit for bit)
+        cfg_t = RenderConfig(sampler="sobol")
+        opts_t = mk.kernel_options(cfg_t, scene)
+        pk_t = mk.pack_scene(scene, config=cfg_t)
+        timing, err, work = _time_dispatch(f"{size} K6 env round", pk_t, opts_t, device, seed,
+                                           _adaptive_tiles(device, "round"))
+        if err != 0.0:
+            raise AssertionError(f"K6 at {size} is not bit for bit its plain version")
+        n_lanes = len(ADAPTIVE_DISPATCH["round"][0]) * 2 * mk.TILE
+        lbnd = _lookup_bound(pk_t, opts_t, work, n_lanes * 12, n_lanes * 8 + 4 * 2 * 81)
+        res["K6"] = dict(err=err, ms=timing[0], plain_ms=timing[1], bound=timing[2],
+                         lookup_bound=lbnd, lookups=int(work.get("env_lookup", 0)))
+        print(f"  {size} K6 env round: with the map's bytes counted per lookup "
+              f"({res['K6']['lookups']} lookups x 48 bytes) {lbnd[0]:.4f} ms ({lbnd[1]})")
+        del work, pk, pk_t
+        # the Renderer through pipeline='auto': the megakernel, exact and env NEE
+        legs = {}
+        for name, cfg, variant, key in (
+                ("exact", RenderConfig(samples_per_launch=200), "env_exact", "K3"),
+                ("env NEE", RenderConfig(samples_per_launch=200, nee=True), "env_nee", "K4")):
+            r = Renderer(scene, cfg, seed=seed, device=device)
+            if r.pipeline != "pallas":
+                raise AssertionError(f"{size} {name}: 'auto' took {r.pipeline!r}, not 'pallas'")
+            r.step(200)  # warm-up
+            r.reset()
+            mk.KERNEL.reset_counts()
+            t0 = time.perf_counter()
+            r.render(1000)
+            wall = time.perf_counter() - t0
+            by_variant = dict(mk.KERNEL.launches_by_variant)
+            img = r.linear_image()
+            r.reset()
+            idle = _launch_idle_share(lambda: r.render(1000))
+            rays = scene.camera.pixel_count * 1000 / wall
+            legs[name] = dict(rays_per_s=rays, idle_share=idle, mean=float(img.mean()))
+            res[key]["launches"] = by_variant.get(variant, 0)
+            print(f"  {size} {name} leg ({r.pipeline}): render(1000) {rays:.6e} rays/s, "
+                  f"{wall:.4f} s, device idle at least {idle:.4f} of one more render(1000) "
+                  f"(its ctypes calls timed by CUDA events); mean {img.mean():.6f}; launches "
+                  f"{by_variant}")
+            if by_variant.get(variant, 0) <= 0:
+                raise AssertionError(f"the {size} {name} leg never launched {variant}")
+            if not (np.isfinite(img).all() and img.mean() > 0.0):
+                raise AssertionError(f"the {size} {name} frame is not finite or lit")
+            del r
+        # env NEE's mean against the exact estimator's, printed, not gated:
+        # the alias draw takes the texel and the stay-or-alias choice from
+        # one f32 uniform, which past 2^15 texels leaves the choice fewer
+        # than 9 bits (none at 2^23), as in the JAX package's sample_env
+        # (ROADMAP Queue 3)
+        print(f"  {size} env NEE mean / exact mean: "
+              f"{legs['env NEE']['mean'] / legs['exact']['mean']:.6f}")
+        # the AdaptiveRenderer in exact mode: the tile dispatch
+        mk.KERNEL.reset_counts()
+        ada = AdaptiveRenderer(scene, RenderConfig(samples_per_launch=256, sampler="sobol"),
+                               device=device)
+        t0 = time.perf_counter()
+        ada.render(256)
+        ada_wall = time.perf_counter() - t0
+        ada_launches = dict(mk.KERNEL.launches_by_variant)
+        ada_img = ada.linear_image()
+        spp_map = ada.spp_map()
+        res["K6"]["launches"] = ada_launches.get("tiles+env_exact", 0)
+        print(f"  {size} adaptive leg: avg {ada.avg_spp:.2f} spp (min {spp_map.min()} max "
+              f"{spp_map.max()}), mean {ada_img.mean():.6f}; launches {ada_launches}; wall "
+              f"{ada_wall:.4f} s")
+        if res["K6"]["launches"] <= 0:
+            raise AssertionError(f"the {size} adaptive leg never launched tiles+env_exact")
+        if not (np.isfinite(ada_img).all() and ada_img.mean() > 0.0) or spp_map.min() < 64:
+            raise AssertionError(f"the {size} adaptive image is malformed")
+        del ada, scene
+        out[size] = dict(kernels=res, legs=legs)
+    print(f"  phase [27] {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _cli_phase(device, seed, scene_path, ref_img, smi):
@@ -1737,14 +2073,15 @@ def _cli_phase(device, seed, scene_path, ref_img, smi):
     filter_err = float((f_dev.cpu() - denoise.atrous_denoise(img, aov_cpu)).abs().max())
     mdesc = load_scene_desc(scene_path("mesh1080p.txt"))
     small = dataclasses.replace(mdesc, camera=dataclasses.replace(mdesc.camera,
-                                                                   resolution=(160, 90)))
+                                                                   resolution=MESH_AOV_GATE_RES))
     m_dev, m_cpu = Scene.from_desc(small, device), Scene.from_desc(small, "cpu")
     t0 = time.perf_counter()
     m_aov_cpu = denoise.render_aovs(m_cpu)
     cpu_mesh_s = time.perf_counter() - t0
-    _aovs_agree("(e) AOVs, mesh1080p.txt 160x90", denoise.render_aovs(m_dev), m_aov_cpu, m_cpu)
-    noisy = torch.as_tensor(np.random.default_rng(seed).uniform(0, 2, (90, 160, 3)),
-                            dtype=torch.float32)
+    _aovs_agree("(e) AOVs, mesh1080p.txt {}x{}".format(*MESH_AOV_GATE_RES),
+                denoise.render_aovs(m_dev), m_aov_cpu, m_cpu)
+    noisy = torch.as_tensor(np.random.default_rng(seed).uniform(
+        0, 2, (MESH_AOV_GATE_RES[1], MESH_AOV_GATE_RES[0], 3)), dtype=torch.float32)
     m_f_dev = denoise.atrous_denoise(noisy.to(device),
                                      denoise.Aovs(*[a.to(device) for a in m_aov_cpu]))
     filter_err = max(filter_err, float((m_f_dev.cpu()
@@ -1759,7 +2096,8 @@ def _cli_phase(device, seed, scene_path, ref_img, smi):
     aov_ms = _median_ms(lambda: denoise.render_aovs(c_dev), reps=5)
     img_dev = img.to(device)
     filter_ms = _median_ms(lambda: denoise.atrous_denoise(img_dev, aov_dev), reps=5)
-    # (e)'s pass at 160x90 ran the same chunk shapes, so no warm-up pass here
+    # (e)'s pass on the small frame ran the same chunk shapes, so no warm-up
+    # pass here
     mesh_times = []
     for _ in range(MESH_AOV_REPS):
         torch.cuda.synchronize()
@@ -1886,8 +2224,6 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
                                                _adaptive_tiles(device, which))
         errs["exact tiles"] = max(errs["exact tiles"], err)
         del w
-    env_bytes = lambda pk: (pk.env.height * pk.env.width * 16  # noqa: E731
-                            if pk.env.mode == "exact" else 0)
     row_kernel = None
     for what, (pk, opts) in prepared.items():
         # env NEE's rows (with their per-geom table) are built once here by
@@ -1904,12 +2240,13 @@ def _environment_phases(device, seed, chunk, pix, scene_path):
         mk.render_samples_reference(pix, pk, opts, seed, 1, chunk, stats=w)
         row_bytes = n_rows * (8 + 6 * pk.num_geoms) * 4
         times[what] = (k_ms, p_ms, _bound(pk, opts, w, pix.numel() * 12,
-                                          env_bytes(pk) + row_bytes, env_rows=n_rows))
+                                          _map_bytes(pk, opts) + row_bytes, env_rows=n_rows))
         if what in ("env NEE", "split composite"):  # K4, K5
-            _visibility(what, pk, opts, device, seed, chunk, w,
-                        _bound(pk, opts, w, pix.numel() * 12, env_bytes(pk) + n_rows * 32,
-                               shared=False, env_rows=n_rows),
-                        times[what][2])
+            alone = _bound(pk, opts, w, pix.numel() * 12, _map_bytes(pk, opts) + n_rows * 32,
+                           shared=False, env_rows=n_rows)
+            w = {}
+            mk.render_samples_reference(pix, pk, opts, seed, 1, SCHEDULE_SPP, stats=w)
+            _visibility(what, pk, opts, device, seed, SCHEDULE_SPP, w, alone, times[what][2])
         del w
         print(f"  {what}: one {chunk}-sample launch: kernel {k_ms:.3f} ms, plain version "
               f"{p_ms:.1f} ms; bound {times[what][2][0]:.4f} ms ({times[what][2][1]})")
@@ -2230,12 +2567,14 @@ def main() -> int:
     # the bounce loop's warp schedule: the counting build against the
     # emulation's replay of the warps it recorded, on the plain version's
     # path lengths of the same launch
-    counted, owners = mk.kernel_warp_work(packed, opts, seed, 1, chunk, device)
+    work = {}
+    mk.render_samples_reference(pix, packed, opts, seed, 1, SCHEDULE_SPP, stats=work)
+    counted, owners = mk.kernel_warp_work(packed, opts, seed, 1, SCHEDULE_SPP, device)
     steps, draws = mk.path_lengths(work)
     emulated = mk.warp_schedule(steps, draws, mk.SCHEDULE, **mk.schedule_args(opts),
                                 owners=owners, vis=mk.path_visibility(work))
     today = mk.warp_schedule(steps, draws, "thread")
-    print(f"  bounce loop, counting build: {counted}, SIMT efficiency "
+    print(f"  bounce loop of a {SCHEDULE_SPP}-sample launch, counting build: {counted}, SIMT efficiency "
           f"{counted['lane_iters'] / (32 * counted['warp_iters']):.4f}; emulation "
           f"{ {k: emulated[k] for k in mk.WORK} }, {emulated['efficiency']:.4f} (a thread per "
           f"pixel: {today['efficiency']:.4f}, {today['warp_iters']} warp iterations)")
@@ -2380,9 +2719,12 @@ def main() -> int:
         w = {}
         mk.render_samples_reference(pix, pk, opts, seed, 1, chunk, stats=w)
         times[key] = (k_ms, p_ms, _bound(pk, opts, w, pix.numel() * 12, 0))
+        alone = _bound(pk, opts, w, pix.numel() * 12, 0, shared=False)
         # K2's and K1b's light rays: the counting build against the emulation
-        _visibility(f"{key} ({'K2' if key == 'a' else 'K1b'})", pk, opts, device, seed, chunk, w,
-                    _bound(pk, opts, w, pix.numel() * 12, 0, shared=False), times[key][2])
+        w = {}
+        mk.render_samples_reference(pix, pk, opts, seed, 1, SCHEDULE_SPP, stats=w)
+        _visibility(f"{key} ({'K2' if key == 'a' else 'K1b'})", pk, opts, device, seed,
+                    SCHEDULE_SPP, w, alone, times[key][2])
         del w
     k_ms = _time_ms(lambda: tiles_kernel(chunk), reps=3)
     p_ms = _time_ms(lambda: tiles_plain(chunk), reps=1)
@@ -2559,9 +2901,23 @@ def main() -> int:
     k7_reference = _pipeline_phases(device, seed, scene_path, ref_img, smi)
     _cli_phase(device, seed, scene_path, ref_img, smi)
     _multi_device_phase(device, seed, scene_path, ref_img, smi)
-    _host_runtime_phase(device, seed, scene_path, host_build, smi)
+    big = _host_runtime_phase(device, seed, scene_path, host_build, smi)
+    big_maps = _big_map_phase(device, seed, chunk, scene_path, big, smi)
     print(f"  peak device memory {torch.cuda.max_memory_allocated(device)} bytes; "
           f"total {time.perf_counter() - t_start:.1f} s")
+
+    def big_map_entries():
+        # K3, K4 and K6 at phase 27's maps: launches from its legs, K6's
+        # times and bound the round's; lookup_bound_ms counts the map's bytes
+        # per lookup where bound_ms counts them once
+        names = {"K3": ("K3 megakernel[env exact]", 1055), "K4": ("K4 megakernel[env nee]", 1673),
+                 "K6": ("K6 megakernel[tiles]", 2173)}
+        for size, got in big_maps.items():
+            for key, (name, line) in names.items():
+                k = got["kernels"][key]
+                yield dict(mk_entry(f"{name} @{size}", line, k["launches"], k["err"],
+                                    (k["ms"], k["plain_ms"], k["bound"])),
+                           lookup_bound_ms=k["lookup_bound"][0], map=size)
     print(json.dumps({"kernels": [
         mk_entry("K1 megakernel", 2393, main_launches, max_abs_err, (ms, plain_ms, k1_bound)),
         mk_entry("K1b megakernel[refraction,dof,early_exit,throughput]", 1510, k1b_launches,
@@ -2582,6 +2938,7 @@ def main() -> int:
         mesh_entry("K7 mesh_intersect[full]", "K7", meshes["k7_launches"],
                    reference_pipeline=k7_reference),
         mesh_entry("K8 mesh_intersect[tmin]", "K8", meshes["k8_launches"]),
+        *big_map_entries(),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2593,4 +2950,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--golden-eager"]:
+        sys.exit(_golden_eager(sys.argv[2], *map(int, sys.argv[3:6]), sys.argv[6]))
     sys.exit(main())

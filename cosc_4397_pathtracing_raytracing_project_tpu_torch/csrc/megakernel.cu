@@ -24,9 +24,17 @@
 //   0 none: the gradient sky scaled by sky_strength;
 //   1 exact (K3, env_lookup/accumulate of the TPU kernel): a path's escape
 //     records its throughput and direction, and one bilinear lookup of the
-//     strength-folded map (device memory, 393 KB for the 128x256 meadow
-//     map, resident in L2; plain global loads, no texture unit, whose
-//     bilinear weights have 8 fractional bits) settles each sample;
+//     strength-folded map settles each sample. The TPU kernel holds the map
+//     in VMEM and gathers with a one-hot matmul, which caps it at 256x512
+//     texels; here it stays in device memory at any size whose floats take
+//     32-bit offsets (h*w*4 < 2^31). Texel (y, x) is one float4 (r, g, b,
+//     pdf), so a lookup is four 16-byte loads over two map rows, and env
+//     NEE's pdf texel (the nearest, one of the four) comes with them. Past
+//     the 50 MB L2 (a 2k x 4k map takes 134 MB) the incoherent escapes of
+//     later bounces read device memory; the other resident warps hide the
+//     latency. Plain global loads, no texture unit (its filtering's bilinear
+//     weights have 8 fractional bits); PERF.md has the layouts measured
+//     against this one;
 //   2 exact + env NEE (K4): also, at every diffuse vertex, a visibility ray
 //     along the (iteration, depth) row's shared alias-sampled direction,
 //     weighted by the balance heuristic, and the escape weighted against the
@@ -279,14 +287,13 @@ struct TileArgs {
 };
 struct NoTiles {};
 
-// ENV 1/2: the strength-folded radiance rad[(y*w + x)*3 + c], the sampler's
-// pdf[y*w + x] and (ENV 2) env NEE's rows, row r = s*trace_depth + depth at
-// rows[r * (8 + 6 * num_geoms)]: dir xyz, bilinear radiance rgb, pdf, 0,
-// then geom k's entry of the direction (dir_entry) at 8 + 6k; all device
-// memory.
+// ENV 1/2: the map's texels, tex[y*w + x] = (r, g, b, pdf), the
+// strength-folded radiance and the sampler's pdf, and (ENV 2) env NEE's rows,
+// row r = s*trace_depth + depth at rows[r * (8 + 6 * num_geoms)]: dir xyz,
+// bilinear radiance rgb, pdf, 0, then geom k's entry of the direction
+// (dir_entry) at 8 + 6k; all device memory.
 struct EnvExact {
-  const float* rad;
-  const float* pdf;
+  const float4* tex;
   const float* rows;
   int h;
   int w;
@@ -977,7 +984,15 @@ static __device__ __forceinline__ void env_uv(float dx, float dy, float dz, floa
 // wrap in azimuth, clamp at the poles. Its one-hot rows sum the weights of
 // equal indices, so at the pole clamp (y0 == y1) the row weight is
 // (1-ty)+ty; its matrix product becomes two-term sums per column and row.
-static __device__ void env_lookup(const EnvExact& e, float dx, float dy, float dz, float* rgb) {
+// With PDF (K4) also the sampler's pdf of the direction (its
+// env_pdf_lookup): the nearest texel, no -0.5 offset, clamped, from the
+// same (u, v). That texel is one of the four: u*w - 0.5 is exact in f32, so
+// floor(u*w) is x0 or x0 + 1 (x1 at the wrap, x0 past the map's right edge,
+// x1 = 0 left of the first texel centre), and the same holds in v against
+// the clamped rows.
+template <bool PDF>
+static __device__ __forceinline__ void env_lookup(const EnvExact& e, float dx, float dy, float dz,
+                                                  float* rgb, float* pdf) {
   float u, v;
   env_uv(dx, dy, dz, &u, &v);
   const int w = e.w, h = e.h;
@@ -996,32 +1011,32 @@ static __device__ void env_lookup(const EnvExact& e, float dx, float dy, float d
   const bool same_x = x0i == x1i;
   const float wy0 = same_y ? (1.0f - ty) + ty : 1.0f - ty;
   const float wx0 = same_x ? (1.0f - tx) + tx : 1.0f - tx;
-  const float* r00 = e.rad + (y0i * w + x0i) * 3;
-  const float* r01 = e.rad + (y0i * w + x1i) * 3;
-  const float* r10 = e.rad + (y1i * w + x0i) * 3;
-  const float* r11 = e.rad + (y1i * w + x1i) * 3;
+  const float4* row0 = e.tex + y0i * w;
+  const float4* row1 = e.tex + y1i * w;
+  const float4 t00 = __ldg(row0 + x0i);
+  const float4 t01 = __ldg(row0 + x1i);
+  const float4 t10 = __ldg(row1 + x0i);
+  const float4 t11 = __ldg(row1 + x1i);
+  const float c00[3] = {t00.x, t00.y, t00.z};
+  const float c01[3] = {t01.x, t01.y, t01.z};
+  const float c10[3] = {t10.x, t10.y, t10.z};
+  const float c11[3] = {t11.x, t11.y, t11.z};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    float col0 = __ldg(r00 + c) * wy0;
-    float col1 = __ldg(r01 + c) * wy0;
+    float col0 = c00[c] * wy0;
+    float col1 = c01[c] * wy0;
     if (!same_y) {
-      col0 = col0 + __ldg(r10 + c) * ty;
-      col1 = col1 + __ldg(r11 + c) * ty;
+      col0 = col0 + c10[c] * ty;
+      col1 = col1 + c11[c] * ty;
     }
     const float left = wx0 * col0;
     rgb[c] = same_x ? left : left + tx * col1;
   }
-}
-
-// The sampler's pdf at an escape direction (K4's MIS partner; the TPU
-// kernel's env_pdf_lookup): the nearest texel, no -0.5 offset, clamped.
-static __device__ __forceinline__ float env_pdf_lookup(const EnvExact& e, float dx, float dy,
-                                                       float dz) {
-  float u, v;
-  env_uv(dx, dy, dz, &u, &v);
-  const int xi = min(max((int)(u * (float)e.w), 0), e.w - 1);
-  const int yi = min(max((int)(v * (float)e.h), 0), e.h - 1);
-  return __ldg(e.pdf + yi * e.w + xi);
+  if constexpr (PDF) {
+    const int xi = min(max((int)(u * (float)w), 0), w - 1);
+    const int yi = min(max((int)(v * (float)h), 0), h - 1);
+    *pdf = (yi != y0i ? (xi != x0i ? t11 : t10) : (xi != x0i ? t01 : t00)).w;
+  }
 }
 
 // SH-9 residual sky of the split mode (ops.envmap.sh9_eval): the shared
@@ -1761,17 +1776,14 @@ __global__ void __launch_bounds__(PT_BLOCK, PT_MIN_BLOCKS)
         float er = 0.0f, eg = 0.0f, eb = 0.0f;
         if constexpr (kExact) {
           if (escaped) {
-            float le[3];
-            env_lookup(env, dx, dy, dz, le);
+            float le[3], pe = 0.0f;
+            env_lookup<ENV == 2>(env, dx, dy, dz, le, &pe);
             if constexpr (ENV == 2) {
               // balance heuristic against env NEE (prev_pdf < 0: primary,
               // specular or glass escape); an exact reciprocal where the TPU
               // kernel takes its approximate one
               float wmis = 1.0f;
-              if (prev_pdf >= 0.0f) {
-                const float pe = env_pdf_lookup(env, dx, dy, dz);
-                wmis = prev_pdf * (1.0f / jmax(prev_pdf + pe, 1e-20f));
-              }
+              if (prev_pdf >= 0.0f) wmis = prev_pdf * (1.0f / jmax(prev_pdf + pe, 1e-20f));
               er = cr * le[0] * wmis;
               eg = cg * le[1] * wmis;
               eb = cb * le[2] * wmis;
@@ -2027,14 +2039,14 @@ extern "C" int pt_megakernel_blocks_per_sm(int flags, int smem) {
 // py[n], and with group < num_samples (a divisor of it: the samples of a
 // queue item) units[num_samples*n*3] (*6 with env_mode 1), which the kernel
 // writes and pt_fold_samples sums into out; with env_mode 1-2 (exact, exact
-// + env NEE): env_rad[env_h*env_w*3],
-// env_pdf[env_h*env_w], with 2 also env_rows[num_samples*trace_depth*(8 +
-// 6*num_geoms)] (pt_env_rows_launch's). env_mode 3 is the split mode (suns,
-// SH, bg_external). `queue` is one device counter that no launch on another
-// stream uses meanwhile (zeroed on `stream` here); `work` (PT_MEGA_WORK
-// counters, zeroed by the caller) and `owners[ceil(items/32)]` (items: the
-// queue's, n or n * num_samples / group) are the counting build's and null in
-// any other.
+// + env NEE): env_tex[env_h*env_w*4] (the texels, EnvExact; 16-byte
+// aligned, env_h*env_w*4 < 2^31), with 2 also
+// env_rows[num_samples*trace_depth*(8 + 6*num_geoms)] (pt_env_rows_launch's).
+// env_mode 3 is the split mode (suns, SH, bg_external). `queue` is one
+// device counter that no launch on another stream uses meanwhile (zeroed on
+// `stream` here); `work` (PT_MEGA_WORK counters, zeroed by the caller) and
+// `owners[ceil(items/32)]` (items: the queue's, n or n * num_samples /
+// group) are the counting build's and null in any other.
 extern "C" int pt_megakernel_launch(
     float* out, int n, int width, int height, int seed, int iter_base, int pixel_offset,
     int tile_base, int tile, int num_samples, int trace_depth,
@@ -2044,8 +2056,8 @@ extern "C" int pt_megakernel_launch(
     const int* perm, int num_cubes, int num_geoms, int num_materials,
     const float* lights, const int* light_ids, int num_lights,
     const int* tiles, const float* px, const float* py, int num_tiles, int group,
-    float* units, int env_mode, const float* env_rad, const float* env_pdf, const float* env_rows,
-    int env_h, int env_w, const float* suns, int num_suns, const float* sh, int bg_external,
+    float* units, int env_mode, const float* env_tex, const float* env_rows, int env_h,
+    int env_w, const float* suns, int num_suns, const float* sh, int bg_external,
     unsigned int* queue, unsigned long long* work, int* owners, void* stream) {
   if (n < 0 || width <= 0 || height <= 0 || tile <= 0 || num_geoms < 0 ||
       num_geoms > PT_MAX_GEOMS || num_materials <= 0 ||
@@ -2060,7 +2072,9 @@ extern "C" int pt_megakernel_launch(
        (group <= 0 || group > num_samples || num_samples % group != 0 ||
         (group < num_samples && (!units || (long long)n * num_samples > 0x7fffffffLL)))) ||
       env_mode < 0 || env_mode > 3 ||
-      ((env_mode == 1 || env_mode == 2) && (!env_rad || !env_pdf || env_h <= 0 || env_w <= 0)) ||
+      ((env_mode == 1 || env_mode == 2) &&
+       (!env_tex || ((uintptr_t)env_tex & 15u) != 0 || env_h <= 0 || env_w <= 0 ||
+        (long long)env_h * env_w * 4 > 0x7fffffffLL)) ||
       (env_mode == 2 && !env_rows) ||
       (env_mode == 3 && (num_suns < 0 || num_suns > PT_MAX_SUNS || (num_suns > 0 && !suns) ||
                          !sh)) ||
@@ -2099,7 +2113,7 @@ extern "C" int pt_megakernel_launch(
     lt.count = num_lights;
   }
   TileArgs ta = {tiles, px, py, num_tiles};
-  EnvExact exact = {env_rad, env_pdf, env_rows, env_h, env_w};
+  EnvExact exact = {reinterpret_cast<const float4*>(env_tex), env_rows, env_h, env_w};
   EnvSplit split;
   memset(&split, 0, sizeof(split));
   if (env_mode == 3) {
@@ -2281,8 +2295,9 @@ extern "C" int pt_env_rows_launch(float* out, int num_samples, int depth, int it
                                   const float* pdf, const float* strength, int h, int w,
                                   const float* geo, const int* perm, int num_cubes, int num_geoms,
                                   void* stream) {
-  if (!out || num_samples < 0 || depth < 1 || h <= 0 || w <= 0 || !img || !alias_prob ||
-      !alias_idx || !pdf || !strength || num_geoms < 0 || num_geoms > PT_MAX_GEOMS ||
+  if (!out || num_samples < 0 || depth < 1 || h <= 0 || w <= 0 ||
+      (long long)h * w * 3 > 0x7fffffffLL || !img || !alias_prob || !alias_idx || !pdf ||
+      !strength || num_geoms < 0 || num_geoms > PT_MAX_GEOMS ||
       num_cubes < 0 || num_cubes > num_geoms || (long long)num_samples * depth > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const int rows = num_samples * depth;

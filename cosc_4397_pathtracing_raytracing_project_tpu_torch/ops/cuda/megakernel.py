@@ -93,11 +93,13 @@ MAX_SUNS = 32
 # entries of a warp's queue of light rays in the NEE variants (a warp tests
 # them 32 at a time, and at most 31 wait when an iteration adds 32 more)
 QUEUE_SLOTS = 64
-# Largest map rendered exactly in-kernel: the JAX kernel's VMEM/matmul cap
-# (`megakernel.py:427`), kept so the port takes the megakernel exactly where
-# the JAX package does (the H100 reads the map from device memory and needs
-# no cap; lifting it is a candidate deviation, ROADMAP Queue 3).
-MAX_ENV_EXACT_TEXELS = 256 * 512
+# Largest exact map the kernel takes: it indexes the map's texels (one
+# float4 each, EnvTables.tex) with 32-bit float offsets, h·w·4 < 2^31. The
+# JAX kernel holds the map in VMEM and caps it at 256×512 texels
+# (`megakernel.py:420-427`, MAX_ENV_EXACT_TEXELS); the card reads it from
+# device memory, so any map below this limit renders in-kernel (a deliberate
+# deviation, ROADMAP Queue 3).
+MAX_ENV_TEXELS = ((1 << 31) - 1) // 4
 
 # Samples × pixels per batch of the plain version (bounds its memory).
 _REFERENCE_BATCH = 1 << 21
@@ -155,9 +157,11 @@ class EnvTables:
     """The environment map as the kernel reads it (the JAX kernel's env
     VMEM planes and static split tables).
 
-    - ``exact``: ``rad`` the strength-folded radiance [H·W·3] f32 (row-major
-      H, W, RGB) and ``pdf`` the sampler's per-texel pdf [H·W] f32, both on
-      the scene's device; ``envmap`` draws env NEE's shared rows.
+    - ``exact``: ``tex`` the map's texels [H·W·4] f32 on the scene's
+      device, texel (y, x) (row-major) the strength-folded radiance RGB and
+      the sampler's pdf, which the kernel reads as one float4
+      (:func:`texel_table`); ``envmap`` draws env NEE's shared rows and
+      holds the planes the plain version reads.
     - ``split``: ``suns`` [S, 6] f32 rows (dx, dy, dz, Er, Eg, Eb) and
       ``sh`` [3, 9] f32 (column 0 holds the rounded product coef·Y00, as the
       JAX kernel's first SH term), from ``sh_coeffs``, the float64
@@ -169,8 +173,7 @@ class EnvTables:
     height: int
     width: int
     envmap: object = None  # ops.envmap.EnvMap
-    rad: Optional[torch.Tensor] = None
-    pdf: Optional[torch.Tensor] = None
+    tex: Optional[torch.Tensor] = None
     suns: Optional[np.ndarray] = None
     sh: Optional[np.ndarray] = None
     sh_coeffs: tuple = ()
@@ -376,11 +379,7 @@ def pack_env(scene, config) -> EnvTables:
     env = scene.envmap
     h, w = env.shape
     if opts.env == "exact":
-        return EnvTables(
-            mode="exact", height=h, width=w, envmap=env,
-            rad=(env.img * env.strength).reshape(-1).contiguous(),
-            pdf=env.pdf.reshape(-1).contiguous(),
-        )
+        return EnvTables(mode="exact", height=h, width=w, envmap=env, tex=texel_table(env))
     img = _host(env.img).astype(np.float64) * float(_host(env.strength))
     suns, sh = envmap_ops.split_envmap(
         img, max_suns=int(config.env_split_suns), thresh=float(config.env_split_thresh)
@@ -402,6 +401,15 @@ def pack_env(scene, config) -> EnvTables:
         suns=np.asarray(suns, np.float32).reshape(-1, 6), sh=sh_f, sh_coeffs=sh,
         bg=bg, bg_miss=bg_miss,
     )
+
+
+def texel_table(env) -> torch.Tensor:
+    """The exact map's texels [H·W·4] f32 on the map's device
+    (:class:`EnvTables`): texel (y, x) at 4·(y·W + x), its strength-folded
+    RGB and the sampler's pdf."""
+    h, w = env.shape
+    return torch.cat([(env.img * env.strength).reshape(h, w, 3), env.pdf.reshape(h, w, 1)],
+                     dim=-1).reshape(-1).contiguous()
 
 
 def build_env_nee_rows(env, seed: int, iter_base: int, num_samples: int,
@@ -500,16 +508,10 @@ class KernelOptions:
 def supports(scene) -> bool:
     """Whether the megakernel renders ``scene`` (the JAX ``supports``):
     analytic scenes of 1 to ``MAX_GEOMS`` primitives (triangles take the
-    mesh pipeline, other counts the reference pipeline), with environment
-    maps up to ``MAX_ENV_EXACT_TEXELS`` texels. Larger maps take the fast
-    pipeline in ``'exact'`` mode."""
-    if scene.num_triangles or not 0 < scene.cubes.count + scene.spheres.count <= MAX_GEOMS:
-        return False
-    if scene.envmap is not None:
-        h, w = scene.envmap.shape
-        if h * w > MAX_ENV_EXACT_TEXELS:
-            return False
-    return True
+    mesh pipeline, other counts the reference pipeline). Unlike the JAX
+    ``supports`` it takes an environment map of any size: the JAX kernel's
+    VMEM cap does not apply here (:data:`MAX_ENV_TEXELS`)."""
+    return not scene.num_triangles and 0 < scene.cubes.count + scene.spheres.count <= MAX_GEOMS
 
 
 def _has_emitters(scene, packed=None) -> bool:
@@ -542,8 +544,9 @@ def kernel_options(config, scene=None, packed=None) -> KernelOptions:
     an environment map, the scene, whose emitters are read from ``packed``
     when given) and the module's ``TILE``. Raises
     ``ValueError`` where the JAX kernel does: NEE with the throughput
-    estimator, an environment with it, an exact map past
-    ``MAX_ENV_EXACT_TEXELS``, exact env + analytic emitters under ``nee``.
+    estimator, an environment with it, exact env + analytic emitters under
+    ``nee``; and for an exact map past the kernel's own limit,
+    :data:`MAX_ENV_TEXELS` (the JAX kernel's is 256×512 texels).
     ``config.dof`` None counts as off (the Renderer resolves it from the
     camera's aperture). ``config.early_exit`` is accepted and changes
     nothing: the CUDA kernel's threads already leave their bounce loop when
@@ -572,11 +575,10 @@ def kernel_options(config, scene=None, packed=None) -> KernelOptions:
             nee = nee and _has_emitters(scene, packed)
         else:
             h, w = scene.envmap.shape
-            if h * w > MAX_ENV_EXACT_TEXELS:
+            if h * w > MAX_ENV_TEXELS:
                 raise ValueError(
-                    f"env_mode='exact' in-kernel supports maps up to "
-                    f"{MAX_ENV_EXACT_TEXELS} texels (got {h}x{w}); use "
-                    "env_mode='split' or pipeline='fast'"
+                    f"env_mode='exact': the kernel indexes the map's texels with 32-bit "
+                    f"offsets, at most MAX_ENV_TEXELS={MAX_ENV_TEXELS} texels (got {h}x{w})"
                 )
             env_nee = wants_env_nee(scene, config, packed)
             if legacy:
@@ -1016,7 +1018,8 @@ def _env_lookup(env: EnvTables, dx, dy, dz):
     wrap in azimuth, clamp at the poles, per-texel weights summed as its
     one-hot rows sum them (at the pole clamp ``y0 == y1`` the row weight is
     ``(1-ty)+ty``), then two-term sums: ``P[y0]·wy0 + P[y1]·wy1`` per column,
-    ``wx0·col0 + wx1·col1``."""
+    ``wx0·col0 + wx1·col1``. It reads the map's own planes
+    (``envmap.img`` × ``strength``), not the kernel's texels."""
     h, w = env.height, env.width
     u, v = _env_uv(dx, dy, dz)
     fx = u * w - 0.5
@@ -1034,7 +1037,7 @@ def _env_lookup(env: EnvTables, dx, dy, dz):
     same_x = x0i == x1i
     wy0 = torch.where(same_y, (1.0 - ty) + ty, 1.0 - ty)
     wx0 = torch.where(same_x, (1.0 - tx) + tx, 1.0 - tx)
-    rad = env.rad.reshape(h, w, 3)
+    rad = (env.envmap.img * env.envmap.strength).reshape(h, w, 3)
     out = []
     for c in range(3):
         plane = rad[..., c]
@@ -1055,7 +1058,7 @@ def _env_pdf_lookup(env: EnvTables, dx, dy, dz):
     u, v = _env_uv(dx, dy, dz)
     xi = torch.clamp((u * w).to(torch.int64), 0, w - 1)
     yi = torch.clamp((v * h).to(torch.int64), 0, h - 1)
-    return env.pdf[yi * w + xi]
+    return env.envmap.pdf.reshape(-1)[yi * w + xi]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -2002,7 +2005,7 @@ class Megakernel:
                 p, p, p, p, p, i, i, i,  # scene tables
                 p, p, i,  # light table
                 p, p, p, i, i, p,  # tile dispatch: tables, count, item samples, units
-                i, p, p, p, i, i,  # environment: mode, radiance, pdf, NEE rows, h, w
+                i, p, p, i, i,  # environment: mode, texels, NEE rows, h, w
                 p, i, p, i,  # split: suns, count, SH, background outside
                 p, p, p,  # pixel queue; work counters and chunk owners (counting build)
                 p,  # stream
@@ -2158,12 +2161,13 @@ class Megakernel:
             raise ValueError(f"env_mode {opts.env!r}: the packed scene carries no such tables")
         if env_mode >= 2 and tiles is not None:
             raise ValueError("the tile dispatch carries only env_mode='exact' without nee")
-        rad = pdf = rows = suns = sh = None
+        tex = rows = suns = sh = None
         if env_mode in (1, 2):
-            rad, pdf = env.rad, env.pdf
-            for t in (rad, pdf):
-                if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-                    raise ValueError(f"env tables must be contiguous f32 on {device}")
+            tex = env.tex
+            if (tex.device != device or tex.dtype != torch.float32 or not tex.is_contiguous()
+                    or tex.numel() != 4 * env.height * env.width or tex.data_ptr() % 16):
+                raise ValueError(f"the map's texels must be a contiguous, 16-byte aligned f32 "
+                                 f"[{4 * env.height * env.width}] tensor on {device}")
             if env_mode == 2:
                 rows = env_rows
                 if rows is None:
@@ -2214,7 +2218,7 @@ class Megakernel:
                 ptr(lights_f), ptr(lights_i), num_lights,
                 dptr(table), dptr(px), dptr(py), num_tiles, int(group or num_samples),
                 dptr(units),
-                env_mode, dptr(rad), dptr(pdf), dptr(rows),
+                env_mode, dptr(tex), dptr(rows),
                 env.height if env_mode else 0, env.width if env_mode else 0,
                 ptr(suns), env.num_suns if env_mode == 3 else 0, ptr(sh),
                 int(opts.bg_external),
@@ -2400,7 +2404,8 @@ def render_samples(
 
 def check_tiles_env(scene, config) -> None:
     """The tile dispatch's environment limits (the JAX ``render_tiles``):
-    exact mode only, without ``nee``, up to ``MAX_ENV_EXACT_TEXELS``."""
+    exact mode only, without ``nee``; a map of any size the kernel takes
+    (:data:`MAX_ENV_TEXELS`), where the JAX one caps it at 256×512."""
     if scene.envmap is None:
         return
     if config.env_mode == "split":

@@ -76,9 +76,13 @@ class RenderConfig:
         """The pipeline the JAX package picks on its accelerator
         (`engine.py:147-213`): ``"pallas"`` (the megakernel) for analytic
         scenes of 1 to ``megakernel.MAX_GEOMS`` (64) primitives, unless an
-        environment map in ``'exact'`` mode is past ``MAX_ENV_EXACT_TEXELS``,
-        gathered under ``throughput``, or joined by analytic emitters under
-        ``nee``: those take ``"fast"``; ``"fast_mesh"`` for scenes with
+        environment map in ``'exact'`` mode is gathered under
+        ``throughput`` or joined by analytic emitters under ``nee``: those
+        take ``"fast"``. One deliberate deviation: an exact map of any size
+        stays in the megakernel, where the JAX package sends maps past its
+        kernel's VMEM cap of 256×512 texels to ``"fast"`` (the card reads
+        the map from device memory; ``megakernel.MAX_ENV_TEXELS`` is the
+        kernel's own limit, past which ``"pallas"`` raises); ``"fast_mesh"`` for scenes with
         triangles, no map and at most 64 analytic primitives (under
         ``nee`` only with ``light_only`` gathering); ``"reference"`` for
         everything else (0 or more than 64 analytic primitives, a mesh with
@@ -124,16 +128,13 @@ class RenderConfig:
     def _auto_pipeline(self, scene: Scene) -> str:
         """The JAX ``resolve_pipeline``'s choice for ``pipeline='auto'`` on
         its accelerator."""
-        # an exact map stays in the megakernel when it fits its texel budget
-        # under light_only, and, under nee, when the scene has no analytic
-        # emitter (whose combined NEE with the map runs on the fast pipeline)
+        # an exact map of any size stays in the megakernel under light_only,
+        # and, under nee, when the scene has no analytic emitter (whose
+        # combined NEE with the map runs on the fast pipeline)
         env_ok_exact = False
         if (scene.envmap is not None and self.env_mode == "exact"
                 and self.gather_mode == "light_only"):
-            h, w = scene.envmap.shape
-            env_ok_exact = h * w <= megakernel.MAX_ENV_EXACT_TEXELS
-            if self.nee and env_ok_exact:
-                env_ok_exact = megakernel.static_light_table(scene) is None
+            env_ok_exact = not self.nee or megakernel.static_light_table(scene) is None
         env_free = scene.envmap is None or self.env_mode == "split" or env_ok_exact
         if self.nee:
             if self.gather_mode == "light_only" and fast.supports(scene):

@@ -105,7 +105,7 @@ def build(source, counting):
     sliced = "int pixel_offset," in text
     fn.argtypes = ([p] + [i] * (14 if sliced else 12) + [f] + [i] * 4 + [p] * 5 + [i] * 3
                    + [p, p, i, p, p, p, i] + ([i, p] if groups else [])
-                   + [i, p, p, p, i, i, p, i, p, i, p, p, p, p])
+                   + [i, p, p, i, i, p, i, p, i, p, p, p, p])
     rows = None
     if "pt_env_rows_launch" in text:
         rows = dll.pt_env_rows_launch
@@ -141,9 +141,9 @@ def launch(lib, packed, opts, seed, iter_base, num_samples, tiles=None, group=No
         items = n * (num_samples // group)
     env = packed.env
     env_mode = mk._ENV_MODES[(opts.env, opts.env_nee)]
-    rad = pdf = rows = suns = sh = None
+    tex = rows = suns = sh = None
     if env_mode in (1, 2):
-        rad, pdf = env.rad.contiguous(), env.pdf.contiguous()
+        tex = env.tex.contiguous()
         if env_mode == 2:
             if row_kernel is not None:  # the rows with their per-geom table
                 rows = mk.env_nee_rows_reference(packed, seed, iter_base, num_samples,
@@ -173,8 +173,8 @@ def launch(lib, packed, opts, seed, iter_base, num_samples, tiles=None, group=No
              int(opts.refraction), int(opts.dof), int(opts.legacy), packed.cam.ctypes.data,
              packed.geo.ctypes.data, packed.mats.ctypes.data, packed.gmat.ctypes.data,
              packed.perm.ctypes.data, packed.num_cubes, packed.num_geoms, packed.num_materials,
-             ptr(lights_f), ptr(lights_i), num_lights, *tile_args, env_mode, dptr(rad),
-             dptr(pdf), dptr(rows), env.height if env_mode else 0, env.width if env_mode else 0,
+             ptr(lights_f), ptr(lights_i), num_lights, *tile_args, env_mode,
+             dptr(tex), dptr(rows), env.height if env_mode else 0, env.width if env_mode else 0,
              ptr(suns), env.num_suns if env_mode == 3 else 0, ptr(sh), int(opts.bg_external),
              queue.data_ptr(), dptr(work), dptr(owners), None)
     if err != 0:

@@ -27,6 +27,7 @@ using std::min;
 #define __shared__ static
 
 struct dim3 { unsigned x = 0, y = 0, z = 0; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 
 typedef int cudaError_t;

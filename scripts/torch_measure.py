@@ -2,8 +2,9 @@
 """Measure the PyTorch/CUDA port's kernels on one CUDA card.
 
     python3 scripts/torch_measure.py [--out build/torch_measure.json]
-        [--legs megakernel,ab,schedule,env,mesh,mesh-kernels,mesh-host,fast,reference]
-        [--parent DIR [--diag DIR,...] [--diag-edits NAME,...] [--ab-flags="-DX;-DY"]]
+        [--legs megakernel,ab,schedule,env,mesh,mesh-kernels,mesh-host,fast,reference,maps]
+        [--parent DIR [--diag DIR,...] [--diag-edits NAME,...] [--ab-flags="-DX;-DY"]
+         [--rounds N]]
         [--cases REGEX]
 
 With ``--parent DIR`` (a parent commit's checkout, e.g. unpacked with git
@@ -15,11 +16,14 @@ throughput, K2 antialiased and with the adaptive leg's options, K3-K5 and
 K6 over 16 tiles, with and without the environment, 50 samples each; K6 at
 the adaptive legs' warm-up and round dispatches, ADAPTIVE_DISPATCH; then
 each other compile-time variant of the megakernel once; the median of 20
-each), whether the outputs are bit-identical to the parent's and, for a
-variant that adds in another order, their share of pixels off by more than
-1e-3 and largest difference, then the main path's rays/s (render(1000), two
-laps a turn) and whether the two images are bit-identical; and a census of
-each side's NEE variant's SASS. Each ``--diag`` checkout (a diagnostic
+each), and K3, K4 and K6's environment round again under the meadow map
+resampled to 512x1024 and 2048x4096 (ENV_MAP_REPEATS; a parent whose kernel
+caps the map takes them with its cap lifted); whether the outputs are
+bit-identical to the parent's and, for a variant that adds in another
+order, their share of pixels off by more than 1e-3 and largest difference,
+then the main path's rays/s (render(1000), two laps a turn) and whether the
+two images are bit-identical; and a census of each side's NEE variant's
+SASS. Each ``--diag`` checkout (a diagnostic
 build: an edited copy of a package) and each ``--ab-flags`` set (this
 checkout's kernel built with those nvcc flags) joins the variants' turns,
 with its ptxas registers and spills.
@@ -128,7 +132,7 @@ card. Run in two checkouts by turns, it compares their host costs.
 The eager pipelines' legs (``--legs fast`` and ``--legs reference``, not
 in the default), chip_smoke.py's configurations of phases 20-23: for the
 fast pipeline, env_spheres.txt under throughput gathering, with an emissive
-sphere under nee, and with its map resampled past the megakernel's budget,
+sphere under nee, and with its map resampled to 512x1024 (named 'fast'),
 the golden scene (antialias, sobol) and the 'shared' model on cornell.txt;
 for the reference pipeline, the golden scene, the 'naive', 'bvh' and
 'wavefront' models (each compaction) on cornell.txt, and mesh1080p.txt with
@@ -137,6 +141,14 @@ render(4) after a warm-up sample (rays/s, ms/sample), then one render(4)
 under torch.profiler: torch kernels a sample, the device's idle share,
 device time by part (K7, K8, sort and gathers, the rest), the 12 kernels
 that took the most device time, and K7's launches a sample.
+
+The large-map leg (``--legs maps``, not in the default): chip_smoke.py's
+phase 27 alone (K3, K4 and K6 against their plain versions under the
+meadow resampled to 512x1024 and 2048x4096, their times and bounds, the
+exact and env NEE legs through pipeline='auto' and the adaptive leg),
+then the 2048x4096 legs' device idle share three times by each of two
+methods in turns: torch.profiler, and CUDA events around each kernel's
+ctypes call (a lower bound).
 
 Each leg ends with the card's name, power limit, SM clock and temperature.
 Prints the readings as one JSON object and writes it to --out.
@@ -322,6 +334,40 @@ def eager_readings(r, spp=4, laps=3):
                 k7_launches_per_sample=mesh.KERNEL.launches_by_mode.get("full", 0) / spp,
                 profiled_wall_s=wall, device_us=mesh_groups(rows),
                 top_kernels=sorted(rows, key=lambda r_: -r_[1])[:12])
+
+
+def measure_maps(device, out):
+    """chip_smoke.py's phase 27 alone (env_spheres.txt under the meadow
+    resampled to 512x1024 and 2048x4096 in the megakernel), then the
+    2048x4096 exact and env NEE legs' device idle share of render(1000),
+    three times by each method in turns: torch.profiler
+    (chip_smoke._idle_share) and CUDA events around each kernel's ctypes
+    call (chip_smoke._launch_idle_share, a lower bound)."""
+    import chip_smoke
+
+    scene_path = lambda name: os.path.join(REPO, "scenes", name)  # noqa: E731
+    smi_line = smi("name,power.limit")
+    phase = chip_smoke._big_map_phase(device, SEED, CHUNK, scene_path,
+                                      chip_smoke.big_map_desc(scene_path, 16), smi_line)
+    out["maps_phase27"] = {size: {k: dict(v, bound=list(v["bound"]),
+                                          lookup_bound=list(v["lookup_bound"]))
+                                  for k, v in got["kernels"].items()} | {"legs": got["legs"]}
+                           for size, got in phase.items()}
+    scene = Scene.from_desc(chip_smoke.big_map_desc(scene_path, 16), device)
+    idle = {}
+    for name, kw in (("exact", dict()), ("env NEE", dict(nee=True))):
+        r = Renderer(scene, RenderConfig(samples_per_launch=200, **kw), seed=SEED,
+                     device=device)
+        r.step(200)
+        runs = []
+        for _ in range(3):
+            for how, fn in (("profiler", chip_smoke._idle_share),
+                            ("events", chip_smoke._launch_idle_share)):
+                r.reset()
+                runs.append((how, fn(lambda: r.render(1000))))
+        idle[name] = runs
+        print(f"maps idle 2048x4096 {name}: {runs}", flush=True)
+    out["maps_idle_2048x4096"] = idle
 
 
 def measure_eager(device, out, which):
@@ -659,16 +705,19 @@ def main() -> int:
                     help="with --parent: ','-separated names of DIAG_EDITS, each a copy of this "
                          "checkout's package under build/ with that edit, joining the turns as "
                          "--diag does")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="with --parent: the A/B's rounds of turns (parent, change, ..., then "
+                         "back), each side timed twice a round")
     ap.add_argument("--cases", default=None,
                     help="a regular expression: the ab and schedule legs run only the cases "
                          "whose names it matches")
     ap.add_argument("--legs", default="megakernel,mesh",
                     help="comma-separated: megakernel, ab (the A/B alone, with --parent), "
-                         "schedule, env, mesh, mesh-kernels, mesh-host, fast, reference")
+                         "schedule, env, mesh, mesh-kernels, mesh-host, fast, reference, maps")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
     if not legs or legs - {"megakernel", "ab", "schedule", "env", "mesh", "mesh-kernels",
-                           "mesh-host", "fast", "reference"}:
+                           "mesh-host", "fast", "reference", "maps"}:
         ap.error(f"unknown legs {args.legs!r}")
     if not torch.cuda.is_available():
         print("torch_measure: no CUDA device available", file=sys.stderr)
@@ -684,7 +733,7 @@ def main() -> int:
         extra = [tuple(f.split()) for f in args.ab_flags.split(";") if f.strip()]
         diag = [d for d in args.diag.split(",") if d.strip()]
         diag += [make_diag(name) for name in args.diag_edits.split(",") if name.strip()]
-        measure_ab(device, out, args.parent, extra, diag, args.cases)
+        measure_ab(device, out, args.parent, extra, diag, args.cases, args.rounds)
     elif "ab" in legs:
         ap.error("the ab leg needs --parent")
     if "megakernel" in legs:
@@ -698,6 +747,8 @@ def main() -> int:
     for which in ("fast", "reference"):
         if which in legs:
             measure_eager(device, out, which)
+    if "maps" in legs:
+        measure_maps(device, out)
     out["smi_after"] = smi("clocks.current.sm,power.draw,power.limit,temperature.gpu")
 
     text = json.dumps(out, indent=1)
@@ -743,6 +794,10 @@ ADAPTIVE_DISPATCH = {
     "warmup": (tuple(range(ADAPTIVE_TILES)), 32, 1, 33),
     "round": (tuple(range(0, 4 * 81, 4)), 16, 65, 81),
 }
+# the A/B's larger maps: the meadow (128x256) with each texel repeated 4 x 4
+# (512x1024, 6.3 MB of radiance, inside the 50 MB L2) and 16 x 16
+# (2048x4096, a production-size HDR: 100.7 MB of radiance, past the L2)
+ENV_MAP_REPEATS = (4, 16)
 
 
 def adaptive_tiles(layout, device, which):
@@ -819,6 +874,22 @@ def variant_launchers(pkg, device, kernel=None, cases_re=None):
                                 adaptive_tiles(layout, device, which))
         cases[f"K6 env_{which}"] = (env, cfg(sampler="sobol"),
                                     adaptive_tiles(layout, device, which))
+    # K3, K4 and K6's round under the meadow map with each texel repeated
+    # r x r (ENV_MAP_REPEATS); a parent package whose kernel caps the map
+    # takes it with the cap lifted, its kernel unchanged
+    if hasattr(kmod, "MAX_ENV_EXACT_TEXELS"):
+        kmod.MAX_ENV_EXACT_TEXELS = 1 << 40
+    env_desc = pkg.parse_scene(open(os.path.join(REPO, "scenes", "env_spheres.txt")).read(),
+                               base_dir=os.path.join(REPO, "scenes"))
+    for r in ENV_MAP_REPEATS:
+        big = dataclasses.replace(env_desc, env_image=np.repeat(np.repeat(
+            env_desc.env_image, r, 0), r, 1))
+        size = "x".join(str(n) for n in big.env_image.shape[:2])
+        sc_big = pkg.Scene.from_desc(big, device)
+        cases[f"K3 exact@{size}"] = (sc_big, cfg(), None)
+        cases[f"K4 env_nee@{size}"] = (sc_big, cfg(nee=True), None)
+        cases[f"K6 env_round@{size}"] = (sc_big, cfg(sampler="sobol"),
+                                         adaptive_tiles(layout, device, "round"))
     env_text = open(os.path.join(REPO, "scenes", "env_spheres.txt")).read()
     n_env = env_text.count("\nOBJECT ")
     env_light = (env_text.replace("\nENVIRONMENT\n", "\n" + ENV_LIGHT[0] + "ENVIRONMENT\n", 1)
@@ -876,7 +947,8 @@ def variant_launchers(pkg, device, kernel=None, cases_re=None):
     return launchers
 
 
-def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=(), cases_re=None):
+def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=(), cases_re=None,
+               rounds=1):
     """The kernel variants and the main path, this checkout against the
     parent's package at ``parent_root``, in turns (parent, change, change,
     parent): each variant's 50-sample launch (median of 20) and bit identity
@@ -885,7 +957,8 @@ def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=(), cases_re
     adds a build of this checkout's kernel with those flags to the variants'
     turns (parent, change, extra builds, then back in reverse order), with
     its ptxas registers and spills. Each of ``diag_roots`` (another
-    checkout, such as a diagnostic build) joins the turns the same way."""
+    checkout, such as a diagnostic build) joins the turns the same way.
+    ``rounds`` repeats the turns (each side two medians a round)."""
     pkgs = {"parent": load_package(parent_root, "parent_pkg"),
             "change": sys.modules[PACKAGE]}
     for i, root in enumerate(diag_roots):
@@ -907,7 +980,7 @@ def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=(), cases_re
     launchers = {side: variant_launchers(pkgs.get(side, pkgs["change"]), device, k, cases_re)
                  for side, k in kernels.items()}
     sides = list(kernels)
-    turns = sides + sides[::-1]
+    turns = (sides + sides[::-1]) * rounds
     out["ab_sass_nee"] = {
         side: sass_census(build_modules.get(side, build).library_path(k.name, k.flags),
                           SASS_VARIANTS["nee"])
@@ -966,7 +1039,7 @@ def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=(), cases_re
     for r in renderers.values():
         r.step(200)
     laps = {side: [] for side in renderers}
-    for side in ("parent", "change", "change", "parent") * 2:
+    for side in ("parent", "change", "change", "parent") * (2 * rounds):
         r = renderers[side]
         r.reset()
         torch.cuda.synchronize()
@@ -984,8 +1057,8 @@ def measure_ab(device, out, parent_root, extra_flags=(), diag_roots=(), cases_re
 DIAG_EDITS = {
     # the exact environment's escape lookups (K3, K4) replaced by constants
     "esc_const": [
-        ("env_lookup(env, dx, dy, dz, le);", "le[0] = 0.5f; le[1] = 0.5f; le[2] = 0.5f;"),
-        ("const float pe = env_pdf_lookup(env, dx, dy, dz);", "const float pe = 0.25f;"),
+        ("env_lookup<ENV == 2>(env, dx, dy, dz, le, &pe);",
+         "le[0] = 0.5f; le[1] = 0.5f; le[2] = 0.5f; pe = 0.25f;"),
     ],
     # K4's env ray taken as unoccluded, its test skipped
     "no_env_ray": [

@@ -633,6 +633,64 @@ def test_cuda_counting_build_equals_the_warp_schedule_under_an_environment(case,
     assert want["spread_area"] >= 1.0
 
 
+def big_map_scene(h, w, device, seed=11):
+    """env_spheres.txt at 64x64 under a seeded h x w map whose every texel
+    differs from its neighbours (lognormal, sigma 0.5: a lookup of a wrong
+    texel shows) with one bright sun texel, past the JAX kernel's 256x512
+    cap; built on ``device``."""
+    img = np.random.default_rng(seed).lognormal(0.0, 0.5, size=(h, w, 3)).astype(np.float32)
+    img[h // 5, w // 3] = [4000.0, 3500.0, 3000.0]
+    desc = parse_scene(env_spheres_text(), base_dir=_SCENES)
+    desc.env_image = img
+    return Scene.from_desc(desc, device)
+
+
+def test_texel_table_holds_each_texel():
+    """Texel (y, x) of the exact map's table, the float4 K3 reads, holds its
+    strength-folded radiance and the sampler's pdf, row-major."""
+    scene = big_map_scene(6, 5, "cpu")
+    env = scene.envmap
+    tab = tmk.pack_scene(scene, config=RenderConfig()).env.tex.reshape(6, 5, 4)
+    assert torch.equal(tab[..., :3], env.img * env.strength)
+    assert torch.equal(tab[..., 3], env.pdf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(512, 1024), (2048, 4096)], ids=["512x1024", "2048x4096"])
+@pytest.mark.parametrize("case", ["exact", "env-nee", "tiles"])
+def test_cuda_large_maps_render_in_kernel(case, size, cuda):
+    """Maps past the JAX kernel's cap render in the port's kernel: K3
+    (exact) and K6 (the tile dispatch, 4 tiles, exact) bit for bit their
+    plain version, K4 (env NEE, its rows from the row kernel) within the
+    kernel-vs-plain bound; 64x64, depth 8, 2 samples, the launch counted."""
+    scene = big_map_scene(*size, cuda)
+    config = RenderConfig(nee=case == "env-nee", sampler="sobol" if case == "tiles" else
+                          "independent")
+    opts = tmk.kernel_options(config, scene)
+    packed = tmk.pack_scene(scene, config=config)
+    variant = tmk.variant_name(opts, case == "tiles")
+    launches = tmk.KERNEL.launches_by_variant.get(variant, 0)
+    if case == "tiles":
+        ids = torch.tensor([1, 0, 1, 3], dtype=torch.int32, device=cuda)
+        bases = torch.tensor([1, 5, 9, 3], dtype=torch.int32, device=cuda)
+        flat = torch.as_tensor(np.random.default_rng(3).integers(0, 64 * 64, 4 * tmk.TILE),
+                               device=cuda)
+        px, py = (flat % 64).to(torch.float32), (flat // 64).to(torch.float32)
+        got = tmk.render_tiles(scene, config, 7, ids, bases, px, py, 2, packed=packed)
+        want = tmk.render_tiles_reference(px, py, ids, bases, packed, opts, 7, 2)
+    else:
+        rows = tmk.env_nee_rows(packed, 7, 1, 2, opts.trace_depth) if opts.env_nee else None
+        got = tmk.KERNEL(packed, opts, 7, 1, 2, cuda, env_rows=rows)
+        pix = torch.arange(scene.camera.pixel_count, device=cuda)
+        want = tmk.render_samples_reference(pix, packed, opts, 7, 1, 2, env_rows=rows)
+    assert tmk.KERNEL.launches_by_variant[variant] == launches + 1
+    assert float(got.mean()) > 0.0
+    if case == "env-nee":
+        assert_matches_plain_version(got.cpu().numpy(), want.cpu().numpy())
+    else:
+        assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_cuda_env_tile_dispatch_matches_plain_version(cuda):
     """K6 with the exact environment (K3): 4 tiles with distinct bases."""

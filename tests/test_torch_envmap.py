@@ -259,13 +259,16 @@ def test_primary_rays_and_miss_mask_match_jax():
 
 
 def _scenes(kind, tmp_path):
-    """(JAX scene, port scene) of one routing case's scene."""
+    """(JAX scene, port scene) of one routing case's scene; 'oversize' is
+    the env-only scene under a 512x1024 map (four times the JAX kernel's
+    cap), built in full on the port's side, which renders it."""
     if kind == "oversize":
         jscene, scene = _scenes("env-only", tmp_path)
-        big = np.zeros((512, 1024, 3), np.float32)
+        big = np.full((512, 1024, 3), 0.05, np.float32)
+        big[100, 200] = [120.0, 100.0, 80.0]
         return (jscene.replace(envmap=jscene.envmap.replace(img=jnp.asarray(big))),
-                scene.replace(envmap=dataclasses.replace(scene.envmap,
-                                                         img=torch.as_tensor(big))))
+                scene.replace(envmap=tenv.build_envmap(big, float(scene.envmap.strength),
+                                                       "cpu")))
     path = write_env_map(tmp_path, "sun")
     text = env_scene_text(path, res=16, light=kind == "mixed")
     return (JScene.from_desc(jparse(text, base_dir=str(tmp_path))),
@@ -290,12 +293,18 @@ ROUTES = [
 @pytest.mark.parametrize("kind, cfg", ROUTES, ids=[f"{k}-{c}" for k, c in ROUTES])
 def test_resolve_pipeline_routes_as_jax_on_its_accelerator(kind, cfg, tmp_path, monkeypatch):
     """"pallas" exactly where the JAX package's accelerator branch picks
-    it, "fast" where it picks the fast pipeline."""
+    it, "fast" where it picks the fast pipeline, but for one deliberate
+    deviation (ROADMAP Queue 3): an exact map past the JAX kernel's VMEM
+    cap, which JAX sends to "fast", stays in the port's megakernel, which
+    reads the map from device memory."""
     jscene, scene = _scenes(kind, tmp_path)
     monkeypatch.setattr(jengine.jax, "devices", lambda: [type("D", (), {"platform": "tpu"})()])
     want = JConfig(**cfg).resolve_pipeline(jscene)
     monkeypatch.undo()
     assert want in ("pallas", "fast")
+    if kind == "oversize" and cfg.get("env_mode") != "split":
+        assert want == "fast"
+        want = "pallas"
     assert RenderConfig(**cfg).resolve_pipeline(scene) == want
 
 
@@ -310,9 +319,17 @@ RAISES = [
 
 @pytest.mark.parametrize("kind, cfg, match", RAISES, ids=[r[2][:16] for r in RAISES])
 def test_render_samples_raises_as_jax(kind, cfg, match, tmp_path):
+    """The port raises where the JAX package does, but for the deliberate
+    deviation (ROADMAP Queue 3): an exact map past the JAX kernel's cap,
+    which the port renders in-kernel (finite, lit)."""
     jscene, scene = _scenes(kind, tmp_path)
     with pytest.raises(ValueError, match=match):
         jmk.render_samples(jscene, JConfig(**cfg), jnp.int32(0), jnp.int32(1), 1, interpret=True)
+    if kind == "oversize":
+        out = tmk.render_samples(scene, RenderConfig(**cfg), 0, 1, 1)
+        assert out.shape == (scene.camera.pixel_count, 3)
+        assert bool(torch.isfinite(out).all()) and float(out.mean()) > 0.0
+        return
     with pytest.raises(ValueError, match=match):
         tmk.render_samples(scene, RenderConfig(**cfg), 0, 1, 1)
 
@@ -338,6 +355,9 @@ def test_tile_dispatch_raises_as_jax(cfg, match, tmp_path):
 
 
 def test_adaptive_rejects_an_oversize_map_as_jax(tmp_path):
+    """The JAX AdaptiveRenderer rejects a map past its kernel's cap; the
+    port's takes it (the deliberate deviation, ROADMAP Queue 3) and renders
+    it through the tile dispatch with the exact environment."""
     jscene, scene = _scenes("oversize", tmp_path)
     from cosc_4397_pathtracing_raytracing_project_tpu.render.adaptive import (
         AdaptiveRenderer as JAdaptive,
@@ -345,8 +365,10 @@ def test_adaptive_rejects_an_oversize_map_as_jax(tmp_path):
 
     with pytest.raises(ValueError, match="megakernel pipeline"):
         JAdaptive(jscene, JConfig(), interpret=True)
-    with pytest.raises(ValueError, match="megakernel pipeline"):
-        AdaptiveRenderer(scene, RenderConfig(), device="cpu")
+    ada = AdaptiveRenderer(scene, RenderConfig(samples_per_launch=8), device="cpu")
+    ada.render(8)
+    img = ada.linear_image()
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all() and img.mean() > 0.0
 
 
 def test_too_many_suns_raise(tmp_path):
