@@ -66,9 +66,9 @@ Phases, in order; any failure raises and exits non-zero:
    a 10-sample launch as phase 6 reports K2's; then env NEE's row kernel (its rows
    and their per-geom table, part of K4) against its plain version at the
    env NEE leg's sizes (a 200-sample step's 1,600 rows and a launch's 400):
-   the drawn texels equal, the largest |Δ| of each column (within 1e-6
-   relative), the table bit for bit the plain table of its directions, and
-   its time beside the torch row build's;
+   bit for bit (the largest |Δ| of each column printed), the table the
+   plain table of its directions, and its time beside the torch row
+   build's;
 11. environment legs: Renderer(env_spheres) render(1000) in exact, exact +
    nee (env NEE) and split mode, rays/s and launches each (the env NEE
    leg's row kernel launched once a step), then each leg once more under
@@ -214,12 +214,18 @@ Phases, in order; any failure raises and exits non-zero:
    env NEE's pdf, and with its bytes counted per lookup, 48 a lookup and 4
    a pdf lookup), K6 at the environment
    adaptive leg's round against its plain version (bit for bit, times,
-   both bounds); the Renderer through pipeline='auto' (which must take
-   'pallas') in exact mode and with env NEE, render(1000) after a warm-up
-   step: rays/s, launches, a lower bound on the device's idle share of one
-   more render(1000) (1 - its kernels' ctypes calls, each timed by CUDA
-   events, over its wall); the AdaptiveRenderer in exact mode, render(256)
-   (K6 launched, every tile at least 64 spp);
+   both bounds); env NEE's row kernel against its plain version as in
+   phase 10, bit for bit (past 2^15 texels the alias cell comes from a
+   64-bit word of its own); the Renderer through pipeline='auto' (which
+   must take 'pallas') in exact mode and with env NEE, render(1000) after
+   a warm-up step: rays/s, launches, a lower bound on the device's idle
+   share of one more render(1000) (1 - its kernels' ctypes calls, each
+   timed by CUDA events, over its wall); phase 13's env-NEE gate: env
+   NEE's channel means between the exact means at depth 8 and at depth 9,
+   within ENV_NEE_SLACK, each a render of ENV_NEE_GATE_SPP samples (env
+   NEE's rows are shared by a sample's pixels, so 1000 samples leave noise
+   of the order of the slack); the AdaptiveRenderer in
+   exact mode, render(256) (K6 launched, every tile at least 64 spp);
 then one JSON
    line describing each ported kernel (K6's times and bound are the
    round's; K7's and K8's are the sums over one mesh pipeline sample's
@@ -227,7 +233,8 @@ then one JSON
    'reference_pipeline' holds phase 23's launches, their count a sample and
    K7's device ms a sample there, per leg; K3, K4 and K6 once more for each
    of phase 27's maps, '@<size>' in the name, with its legs' launches and
-   'lookup_bound_ms'), the card, the result line.
+   'lookup_bound_ms', K4's with its row kernel's time a step and bit
+   identity), the card, the result line.
 
 Every leg sets the launch counts to 0 just before it and reads them just
 after; a leg whose kernel variant was never launched fails. Phases 1-15 are
@@ -289,6 +296,12 @@ FURNACE_BODY_RTOL = 0.02
 # depth 9 (NEE at the last vertex adds part of bounce 9); slack on each side
 # for the Monte-Carlo noise of three 1000-spp renders under meadow's sun
 ENV_NEE_SLACK = 0.01
+# [27]'s env-NEE bracket renders this many samples a leg: env NEE's rows are
+# shared by every pixel of a sample (one alias draw per iteration and depth),
+# so the image mean of a render(1000) rests on 1000 draws a depth, whose
+# noise is of the order of the slack under the meadow's sun (measured over
+# seeds by scripts/torch_measure.py --legs envgate)
+ENV_NEE_GATE_SPP = 16000
 
 # The card's peaks for the bound (NVIDIA H100 SXM data sheet, 700 W): float32
 # outside the tensor cores, and device memory.
@@ -341,8 +354,11 @@ FLOPS_SUN = 17
 # the bilinear radiance (atan2, acos, u, v, the texel coordinates and
 # weights: 14, then 10 a channel); per geom the direction's object-space
 # direction and the table's reciprocals (FLOPS_DIR, FLOPS_SUN_TABLE). Its
-# threefry draws are integer work, not counted.
+# threefry draws are integer work, not counted. Past 2^15 texels the cell
+# comes from integer words and the fraction is u1 itself: 2 fewer (the scale
+# and the fraction).
 FLOPS_ENV_ROW = 29 + 14 + 3 * 10
+FLOPS_ENV_ROW_OWN_CELL = FLOPS_ENV_ROW - 2
 
 # the mesh kernels (csrc/mesh_kernel.cu), per ray: the three reciprocals of
 # the direction, per cluster or supercluster box one slab test (6 sub, 6 mul,
@@ -605,6 +621,7 @@ def _bound(packed, opts, work, out_bytes, in_bytes, shared=True, env_rows=0):
     ``shared``, their per-geom table's too)."""
     import numpy as np
 
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import envmap
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
 
     geoms = [(int(packed.perm[3 * k]) >= 0, k < packed.num_cubes)
@@ -617,6 +634,9 @@ def _bound(packed, opts, work, out_bytes, in_bytes, shared=True, env_rows=0):
     entry = sum(FLOPS_DIR[a] + FLOPS_SUN_TABLE["cube" if cube else "sphere"] for a, cube in geoms)
     sun_occlusion = env_occlusion = occlusion
     row_table = 0
+    row_flops = FLOPS_ENV_ROW
+    if env_rows and packed.env.height * packed.env.width > envmap.ENV_CELL_SPLIT:
+        row_flops = FLOPS_ENV_ROW_OWN_CELL
     if shared and env_rows:
         env_occlusion = sum(FLOPS_ORIGIN[a] + (FLOPS_SHADOW_CUBE - 3 if cube else
                                                FLOPS_SHADOW_SPHERE - 6) for a, cube in geoms)
@@ -643,7 +663,7 @@ def _bound(packed, opts, work, out_bytes, in_bytes, shared=True, env_rows=0):
         + int(work.get("env_pdf", 0)) * FLOPS_ENV_PDF
         + int(work.get("sh", 0)) * FLOPS_SH9
         + extra
-        + env_rows * (FLOPS_ENV_ROW + row_table)
+        + env_rows * (row_flops + row_table)
     )
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = (out_bytes + in_bytes) / PEAK_BYTES_PER_S * 1e3
@@ -1814,11 +1834,32 @@ def _lookup_bound(packed, opts, work, out_bytes, other_bytes, env_rows=0):
     return _bound(packed, opts, work, out_bytes, other_bytes + lookup_bytes, env_rows=env_rows)
 
 
+def env_nee_bracket(scene, seed, device, spp):
+    """Phase 13's env-NEE gate on ``scene``: the per-channel image means of
+    env NEE at depth 8 and of the exact estimator at depth 8 and 9, each a
+    ``render(spp)`` with ``seed``; returns them with how far env NEE lies
+    below the depth-8 means and above the depth-9 means (the largest
+    channel's relative gap)."""
+    from cosc_4397_pathtracing_raytracing_project_tpu_torch import RenderConfig, Renderer
+
+    means = []
+    for cfg in (RenderConfig(samples_per_launch=200, nee=True),
+                RenderConfig(samples_per_launch=200),
+                RenderConfig(samples_per_launch=200, trace_depth=9)):
+        r = Renderer(scene, cfg, seed=seed, device=device)
+        r.render(spp)
+        means.append(r.linear_image().reshape(-1, 3).mean(0))
+        del r
+    nee, d8, d9 = means
+    return nee, d8, d9, float((1.0 - nee / d8).max()), float((nee / d9 - 1.0).max())
+
+
 def _big_map_phase(device, seed, chunk, scene_path, big, smi):
     """Phase 27: exact maps past the JAX kernel's VMEM cap render in the
-    megakernel. ``big`` is phase 26's 2048x4096 map (its SceneDesc); the
-    512x1024 map is phase 20's. Returns, per map, K3's, K4's and K6's
-    readings for the kernels line."""
+    megakernel, and env NEE under them stays in phase 13's depth bracket.
+    ``big`` is phase 26's 2048x4096 map (its SceneDesc); the 512x1024 map
+    is phase 20's. Returns, per map, K3's, K4's (with the row kernel's) and
+    K6's readings for the kernels line."""
     import numpy as np
     import torch
 
@@ -1868,6 +1909,10 @@ def _big_map_phase(device, seed, chunk, scene_path, big, smi):
             lbnd = _lookup_bound(pk, opts, work, pix.numel() * 12, other, env_rows=n_rows)
             res[key] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound=bnd, lookup_bound=lbnd,
                             lookups=int(work.get("env_lookup", 0)))
+            if opts.env_nee:
+                # the row kernel bit for bit its plain version under this map
+                # (past 2^15 texels the alias cell from words of its own)
+                res[key]["rows"] = _row_kernel_check(pk, opts, seed, chunk)
             print(f"  {size} {key}: one {chunk}-sample launch: kernel {k_ms:.4f} ms, plain "
                   f"version {p_ms:.1f} ms (one run, counting its work); bound {bnd[0]:.4f} ms "
                   f"({bnd[1]}; the map's {_map_bytes(pk, opts)} bytes once); with the map's bytes "
@@ -1920,13 +1965,21 @@ def _big_map_phase(device, seed, chunk, scene_path, big, smi):
             if not (np.isfinite(img).all() and img.mean() > 0.0):
                 raise AssertionError(f"the {size} {name} frame is not finite or lit")
             del r
-        # env NEE's mean against the exact estimator's, printed, not gated:
-        # the alias draw takes the texel and the stay-or-alias choice from
-        # one f32 uniform, which past 2^15 texels leaves the choice fewer
-        # than 9 bits (none at 2^23), as in the JAX package's sample_env
-        # (ROADMAP Queue 3)
-        print(f"  {size} env NEE mean / exact mean: "
-              f"{legs['env NEE']['mean'] / legs['exact']['mean']:.6f}")
+        # env NEE's channel means between the exact estimator's at depth 8
+        # and depth 9 ([13]'s gate under the meadow): the alias draw's cell
+        # from words of its own past 2^15 texels keeps env NEE unbiased here
+        t0 = time.perf_counter()
+        means_nee, means_d8, means_d9, below, above = env_nee_bracket(
+            scene, seed, device, ENV_NEE_GATE_SPP)
+        legs["env NEE"].update(below_depth8=below, above_depth9=above)
+        print(f"  {size} env NEE mean / exact mean at 1000 spp: "
+              f"{legs['env NEE']['mean'] / legs['exact']['mean']:.6f}; at {ENV_NEE_GATE_SPP} spp "
+              f"({time.perf_counter() - t0:.1f} s) channel means: env NEE depth 8 "
+              f"{means_nee.tolist()}, exact depth 8 {means_d8.tolist()}, depth 9 "
+              f"{means_d9.tolist()}; below depth 8 by {below:.4e}, above depth 9 by "
+              f"{above:.4e} (slack {ENV_NEE_SLACK} each)")
+        if below > ENV_NEE_SLACK or above > ENV_NEE_SLACK:
+            raise AssertionError(f"{size}: env NEE's channel means leave the depth-8..9 bracket")
         # the AdaptiveRenderer in exact mode: the tile dispatch
         mk.KERNEL.reset_counts()
         ada = AdaptiveRenderer(scene, RenderConfig(samples_per_launch=256, sampler="sobol"),
@@ -2391,11 +2444,13 @@ def _idle_share(fn):
 
 def _row_kernel_check(pk, opts, seed, chunk):
     """Env NEE's row kernel against its plain version on the card, at a
-    200-sample step's rows and a launch's: the drawn texels (pdf column)
-    equal, directions and radiance within 1e-6 relative (the largest |Δ|
-    of each column printed), the per-geom table bit for bit the plain
-    table of the kernel's own directions; the row kernel's time (20
-    launches) beside the torch row build's. Returns the step's readings."""
+    200-sample step's rows and a launch's: bit for bit (the largest |Δ| of
+    each column and the largest relative difference printed; both round
+    each operation alone, call the same CUDA math library and, past 2^15
+    texels, take the alias cell from the same 64-bit integer product), the
+    per-geom table the plain table of the kernel's own directions; the row
+    kernel's time (20 launches) beside the torch row build's. Returns the
+    step's readings."""
     import torch
 
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as mk
@@ -2414,14 +2469,15 @@ def _row_kernel_check(pk, opts, seed, chunk):
         k_ms = _time_ms(lambda: mk.env_nee_rows(pk, seed, 1, samples, depth), reps=20)
         t_ms = _time_ms(lambda: mk.build_env_nee_rows(pk.env.envmap, seed, 1, samples, depth),
                         reps=20)
-        print(f"  env NEE rows, row kernel vs plain version, {samples * depth} rows "
+        print(f"  env NEE rows under the {pk.env.height}x{pk.env.width} map, row kernel vs plain "
+              f"version, {samples * depth} rows "
               f"[{8 + 6 * pk.num_geoms} floats each]: texels equal {texels_equal}, max |d| per "
               f"column (dir xyz, radiance rgb, pdf, pad) {[f'{x:.3e}' for x in col]}, largest "
-              f"relative {rel:.3e} (bound 1e-6), bit-identical {torch.equal(got, want)}, table = "
+              f"relative {rel:.3e}, bit-identical {torch.equal(got, want)} (gate), table = "
               f"plain table {table_equal}; row kernel {k_ms:.4f} ms, torch row build "
               f"{t_ms:.4f} ms")
-        if not (texels_equal and table_equal and rel <= 1e-6 and bool(torch.isfinite(got).all())):
-            raise AssertionError("the row kernel disagrees with its plain version")
+        if not (torch.equal(got, want) and table_equal and bool(torch.isfinite(got).all())):
+            raise AssertionError("the row kernel is not bit for bit its plain version")
         if out is None:
             out = dict(rows=samples * depth, ms=k_ms, torch_ms=t_ms, max_abs=col, rel=rel,
                        bit_identical=torch.equal(got, want))
@@ -2915,9 +2971,13 @@ def main() -> int:
         for size, got in big_maps.items():
             for key, (name, line) in names.items():
                 k = got["kernels"][key]
+                rows = {}
+                if "rows" in k:  # K4: its row kernel under this map
+                    rows = dict(row_kernel_ms_a_step=k["rows"]["ms"],
+                                row_kernel_bit_identical=k["rows"]["bit_identical"])
                 yield dict(mk_entry(f"{name} @{size}", line, k["launches"], k["err"],
                                     (k["ms"], k["plain_ms"], k["bound"])),
-                           lookup_bound_ms=k["lookup_bound"][0], map=size)
+                           lookup_bound_ms=k["lookup_bound"][0], map=size, **rows)
     print(json.dumps({"kernels": [
         mk_entry("K1 megakernel", 2393, main_launches, max_abs_err, (ms, plain_ms, k1_bound)),
         mk_entry("K1b megakernel[refraction,dof,early_exit,throughput]", 1510, k1b_launches,

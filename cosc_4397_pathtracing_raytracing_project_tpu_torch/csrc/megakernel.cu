@@ -2153,6 +2153,7 @@ extern "C" int pt_megakernel_launch(
 //   - the uniforms of jax.random.uniform(fold_in(PRNGKey(seed ^
 //     0xE17B0075), iter_base + s), (depth, 2)) at counters 2d and 2d + 1
 //     (threefry-2x32, the jax_threefry_partitionable layout);
+//   - past 2^15 texels the alias cell's words, rng.cell_words of that key;
 //   - the alias draw of ops.envmap.sample_env and the bilinear
 //     ops.envmap.env_radiance of the drawn direction, each operation rounded
 //     on its own (-fmad=false) with the same CUDA math library's acosf,
@@ -2182,6 +2183,10 @@ struct EnvRowArgs {
   float inv_two_pi;  // 1 / (2 pi)
   float inv_pi;      // 1 / pi
 };
+
+// ops.envmap.ENV_CELL_SPLIT and ops.rng.ENV_CELL_TAG
+#define PT_ENV_CELL_SPLIT (1 << 15)
+#define PT_ENV_CELL_TAG 0xCE11u
 
 // Threefry-2x32 with 20 rounds (jax.random's threefry2x32_p): key (k0, k1)
 // and counter words (x0, x1), in place.
@@ -2225,12 +2230,30 @@ __global__ void pt_env_rows(const __grid_constant__ SceneTables sc,
   const float u1 = bits_u01(b0 ^ b1);
   const float u2 = bits_u01(c0 ^ c1);
 
-  // sample_env: the alias cell from u1's integer part, stay or alias from
-  // its fraction, whose leftover is the azimuth offset in the texel
+  // sample_env: up to PT_ENV_CELL_SPLIT texels the alias cell from u1's
+  // integer part, stay or alias from its fraction, whose leftover is the
+  // azimuth offset in the texel; past it the cell from a 64-bit word of
+  // its own (rng.cell_words: the sample's key folded with PT_ENV_CELL_TAG,
+  // counters 2d and 2d + 1 its high and low halves), floor(word * n / 2^64),
+  // and all of u1 the fraction
   const int n_tex = a.h * a.w;
-  const float scaled = u1 * (float)n_tex;
-  const int cell = min(max((int)scaled, 0), n_tex - 1);
-  const float f = jmin(jmax(scaled - (float)cell, 0.0f), a.f_max);
+  int cell;
+  float f;
+  if (n_tex > PT_ENV_CELL_SPLIT) {
+    uint32_t q0 = 0u, q1 = PT_ENV_CELL_TAG;
+    threefry2x32(k0, k1, q0, q1);
+    uint32_t h0 = 0u, h1 = (uint32_t)(2 * d);
+    threefry2x32(q0, q1, h0, h1);
+    uint32_t l0 = 0u, l1 = (uint32_t)(2 * d + 1);
+    threefry2x32(q0, q1, l0, l1);
+    const uint64_t n = (uint64_t)n_tex;
+    cell = (int)(((uint64_t)(h0 ^ h1) * n + (((uint64_t)(l0 ^ l1) * n) >> 32)) >> 32);
+    f = jmin(jmax(u1, 0.0f), a.f_max);
+  } else {
+    const float scaled = u1 * (float)n_tex;
+    cell = min(max((int)scaled, 0), n_tex - 1);
+    f = jmin(jmax(scaled - (float)cell, 0.0f), a.f_max);
+  }
   const float p_stay = __ldg(a.alias_prob + cell);
   const bool take_alias = f >= p_stay;
   const int idx = take_alias ? __ldg(a.alias_idx + cell) : cell;

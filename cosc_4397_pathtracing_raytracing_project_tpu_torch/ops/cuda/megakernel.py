@@ -47,6 +47,7 @@ from ..intersect import intersect_scene
 from ..rng import (
     MASK32,
     bit_reverse32,
+    cell_words,
     fold_in,
     kernel_seed,
     laine_karras,
@@ -418,15 +419,19 @@ def build_env_nee_rows(env, seed: int, iter_base: int, num_samples: int,
     alias draw per (iteration, depth), ``(dir xyz, bilinear radiance rgb,
     solid-angle pdf, 0)``, on the map's device. The uniforms are
     ``jax.random``'s: ``PRNGKey(uint32(seed) ^ 0xE17B0075)`` folded with the
-    absolute iteration, then ``uniform(k, (trace_depth, 2))``. Radiance is
-    bilinear, so both MIS techniques integrate the same L as the escape
-    lookup."""
+    absolute iteration, then ``uniform(k, (trace_depth, 2))``; on a map past
+    ``envmap.ENV_CELL_SPLIT`` texels the alias cells come from
+    ``rng.cell_words(k, (trace_depth,))`` (where the JAX rows take them from
+    the first uniform). Radiance is bilinear, so both MIS techniques
+    integrate the same L as the escape lookup."""
     dev = env.device
     key = prng_key(u32(seed) ^ 0xE17B0075)
     iters = u32(int(iter_base) + torch.arange(num_samples, dtype=torch.int64))
-    keys = fold_in(key, iters)
-    u = uniform(tuple(k.to(dev) for k in keys), (trace_depth, 2)).reshape(-1, 2)
-    d, _le_nearest, pdf = envmap_ops.sample_env(env, u[:, 0], u[:, 1])
+    keys = tuple(k.to(dev) for k in fold_in(key, iters))
+    u = uniform(keys, (trace_depth, 2)).reshape(-1, 2)
+    words = (cell_words(keys, (trace_depth,)).reshape(-1, 2)
+             if envmap_ops.needs_cell_words(env) else None)
+    d, _le_nearest, pdf = envmap_ops.sample_env(env, u[:, 0], u[:, 1], words)
     le = envmap_ops.env_radiance(env, d)
     return torch.cat([d, le, pdf[:, None], torch.zeros_like(pdf)[:, None]], dim=-1)
 

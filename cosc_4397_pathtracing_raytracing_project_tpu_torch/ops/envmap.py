@@ -146,6 +146,8 @@ class EnvNEEInputs:
     env: EnvMap
     shadow_isect: Callable  # (origins, dirs) -> Hit; visibility = .miss
     uniforms: torch.Tensor  # [N, 2] (rng.env_uniforms)
+    # [N, 2] alias-cell words (rng.env_cell_words), for maps past ENV_CELL_SPLIT
+    cell_words: torch.Tensor | None = None
 
 
 def dir_to_uv(d: torch.Tensor):
@@ -198,20 +200,56 @@ def env_pdf(env: EnvMap, d: torch.Tensor) -> torch.Tensor:
     return env.pdf.reshape(-1)[y * w + x]
 
 
-def sample_env(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor):
+# Past this many texels the alias cell comes from words of its own
+# (:func:`alias_cell`); at and below it the draw is the JAX package's.
+ENV_CELL_SPLIT = 1 << 15
+
+
+def needs_cell_words(env: EnvMap) -> bool:
+    """Whether :func:`sample_env` draws ``env``'s alias cells from words of
+    their own (a map past :data:`ENV_CELL_SPLIT` texels)."""
+    h, w = env.shape
+    return h * w > ENV_CELL_SPLIT
+
+
+def alias_cell(words: torch.Tensor, n_tex: int) -> torch.Tensor:
+    """``floor(W·n_tex / 2^64)`` of the 64-bit word ``W`` whose high and low
+    uint32 halves are ``words[..., 0]`` and ``words[..., 1]`` (int64): a cell
+    in ``[0, n_tex)``, each cell's share of the 2^64 words within
+    ``n_tex / 2^64`` of ``1 / n_tex``. Every product stays below 2^62 for
+    ``n_tex < 2^30``."""
+    hi, lo = words[..., 0], words[..., 1]
+    return (hi * n_tex + ((lo * n_tex) >> 32)) >> 32
+
+
+def sample_env(env: EnvMap, u1: torch.Tensor, u2: torch.Tensor,
+               cell_words: torch.Tensor | None = None):
     """Draw environment directions ∝ luminance·solid-angle.
 
     Returns ``(directions [..., 3], radiance [..., 3] (nearest texel,
-    ×strength), pdf [...])``. The alias cell comes from the integer part of
-    ``u1·n``, stay-or-alias from its fraction, whose leftover is reused as
-    the within-texel azimuth offset; the polar offset is uniform in solid
-    angle within the texel's band, so the generation density is exactly the
+    ×strength), pdf [...])``. On a map of at most :data:`ENV_CELL_SPLIT`
+    texels the draw is the JAX package's: the alias cell comes from the
+    integer part of ``u1·n``, stay-or-alias from its fraction, whose
+    leftover is reused as the within-texel azimuth offset. A 23-bit ``u1``
+    leaves that fraction 23 − log2(n) bits, none at 2^23 texels, so past
+    the split the cell comes from ``cell_words`` ([..., 2] uint32 words in
+    int64, :func:`alias_cell`; ``rng.env_cell_words``) and all of ``u1`` is
+    the fraction (a deliberate deviation from the JAX package, whose draw
+    is biased there). The polar offset ``u2`` is uniform in solid angle
+    within the texel's band, so the generation density is exactly the
     piecewise-constant table pdf."""
     h, w = env.shape
     n_tex = h * w
-    scaled = u1 * n_tex
-    cell = torch.clamp(scaled.to(torch.int64), 0, n_tex - 1)
-    f = torch.clamp(scaled - cell.to(torch.float32), 0.0, 1.0 - 1e-7)
+    if n_tex > ENV_CELL_SPLIT:
+        if cell_words is None:
+            raise ValueError(f"sample_env: a map of {n_tex} texels (past {ENV_CELL_SPLIT}) "
+                             "draws its alias cells from cell_words (rng.env_cell_words)")
+        cell = alias_cell(cell_words, n_tex)
+        f = torch.clamp(u1, 0.0, 1.0 - 1e-7)
+    else:
+        scaled = u1 * n_tex
+        cell = torch.clamp(scaled.to(torch.int64), 0, n_tex - 1)
+        f = torch.clamp(scaled - cell.to(torch.float32), 0.0, 1.0 - 1e-7)
     p_stay = env.alias_prob[cell]
     take_alias = f >= p_stay
     idx = torch.where(take_alias, env.alias_idx[cell].to(torch.int64), cell)

@@ -349,6 +349,8 @@ def trace_sample_fast(scene, config, seed, iteration: int, pixel_offset: int = 0
     nee_all = (rng_ops.nee_uniforms(seed, iteration, depths[n_ld:], n, dev)
                if use_area_nee else None)
     env_all = rng_ops.env_uniforms(seed, iteration, depths, n, dev) if use_env_nee else None
+    cells_all = (rng_ops.env_cell_words(seed, iteration, depths, n, dev)
+                 if use_env_nee and envmap_ops.needs_cell_words(env) else None)
 
     for d in range(config.trace_depth):
         best = intersect_unrolled(scene, *carry[:6])
@@ -360,7 +362,8 @@ def trace_sample_fast(scene, config, seed, iteration: int, pixel_offset: int = 0
             u = u_all[d - n_ld]
             nee_u = None if nee_all is None else nee_all[d - n_ld]
         nee = (light_sampler, shadow_t, nee_u) if use_area_nee else None
-        env_nee = (shadow_t, env_all[d]) if use_env_nee else None
+        env_nee = ((shadow_t, env_all[d], None if cells_all is None else cells_all[d])
+                   if use_env_nee else None)
         carry = shade_soa(carry, best, u, scene.materials, d, config, nee=nee, env=env,
                           env_nee=env_nee)
     if legacy:
@@ -378,8 +381,9 @@ def shade_soa(carry, best: _Best, u, materials, depth, config, nee=None, env=Non
     nearest distance (``_MISS`` when they escape) wherever ``active`` holds
     (the rays whose sample can count). ``env`` (an ``ops.envmap.EnvMap``)
     replaces the gradient sky with the map's lookup; ``env_nee`` is
-    ``(shadow_t_fn, uniforms [N, 2])`` for environment importance sampling
-    with its own MIS pair against BRDF sampling."""
+    ``(shadow_t_fn, uniforms [N, 2], alias-cell words [N, 2] or None)`` for
+    environment importance sampling with its own MIS pair against BRDF
+    sampling (the words: ``envmap.sample_env``)."""
     (ox, oy, oz, dx, dy, dz, cr, cg, cb, bounces, rr_, rg_, rb_) = carry[:13]
     carry_pdf = nee is not None or env_nee is not None
     prev_pdf = carry[13] if carry_pdf else None
@@ -588,9 +592,9 @@ def shade_soa(carry, best: _Best, u, materials, depth, config, nee=None, env=Non
         # direct environment light: the light pdf in solid angle,
         # visibility = the shadow ray escapes the scene, its own MIS pair
         # against BRDF sampling
-        shadow_t, env_u = env_nee
+        shadow_t, env_u, cell_words = env_nee
         base = act if glass_mask is None else act & ~glass_mask
-        wi, _, pdf_e = envmap_ops.sample_env(env, env_u[:, 0], env_u[:, 1])
+        wi, _, pdf_e = envmap_ops.sample_env(env, env_u[:, 0], env_u[:, 1], cell_words)
         # both techniques integrate the same bilinear L
         le3 = envmap_ops.env_radiance(env, wi)
         wx, wy, wz = wi[:, 0], wi[:, 1], wi[:, 2]

@@ -39,7 +39,9 @@ per-bounce streams are indexed by lane: :func:`bounce_uniforms` (``[n,
 NUM_LANES]``), :func:`bounce_lane_uniforms` (the ``[NUM_LANES, n]`` draw the
 fast pipeline makes from the same key: another layout of other bits),
 :func:`nee_uniforms` and :func:`env_uniforms`, each a ``jax.random.uniform``
-of a key folded from ``(seed, iteration, depth)``.
+of a key folded from ``(seed, iteration, depth)``; :func:`env_cell_words`
+adds the environment sampler's alias-cell words for maps past 2^15 texels
+(``ops.envmap.sample_env``), the one stream the JAX package lacks.
 """
 
 from __future__ import annotations
@@ -370,6 +372,25 @@ def env_uniforms(seed: int, iteration, depth, n: int, device="cpu") -> torch.Ten
     """``[n, 2]`` uniforms for environment-map importance sampling, the JAX
     ``env_uniforms``: the bounce key folded with the tag 0xE271."""
     return uniform(fold_in(bounce_key(seed, iteration, depth), 0xE271), (n, 2), device)
+
+
+# Fold tag of the alias cell's words (``ops.envmap.sample_env`` past
+# ``ENV_CELL_SPLIT`` texels), folded into the key of the draw's uniforms:
+# every existing stream keeps its bits.
+ENV_CELL_TAG = 0xCE11
+
+
+def cell_words(key, shape, device=None) -> torch.Tensor:
+    """``[*shape, 2]`` uint32 words (in int64) of the alias cells of a draw
+    whose uniforms come from ``key``: ``random_bits`` of the key folded with
+    :data:`ENV_CELL_TAG`, each cell's (high, low) pair of a 64-bit word."""
+    return random_bits(fold_in(key, ENV_CELL_TAG), tuple(shape) + (2,), device)
+
+
+def env_cell_words(seed: int, iteration, depth, n: int, device="cpu") -> torch.Tensor:
+    """``[n, 2]`` alias-cell words of the draw :func:`env_uniforms` keys
+    (a port extension: the JAX package takes the cell from ``u1``)."""
+    return cell_words(fold_in(bounce_key(seed, iteration, depth), 0xE271), (n,), device)
 
 
 def _frame_uniforms(seed: int, iteration, tag: int, n: int, device) -> torch.Tensor:

@@ -275,7 +275,7 @@ def shade_step(
         base = act & ~glass_mask
         sx = hit.point + hit.normal * _ORIGIN_OFFSET
         wi, _, pdf_e = envmap_ops.sample_env(
-            env_nee.env, env_nee.uniforms[:, 0], env_nee.uniforms[:, 1]
+            env_nee.env, env_nee.uniforms[:, 0], env_nee.uniforms[:, 1], env_nee.cell_words
         )
         # both techniques integrate the same bilinear L as the miss path
         le = envmap_ops.env_radiance(env_nee.env, wi)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops import camera as camera_ops
+from ..ops import envmap as envmap_ops
 from ..ops import fast, tonemap
 from ..ops import rng as rng_ops
 from ..ops.cuda import megakernel
@@ -248,6 +249,8 @@ def trace_sample(
     nee_all = (rng_ops.nee_uniforms(seed, iteration, depths[n_ld:], n, dev)
                if use_area_nee else None)
     env_all = rng_ops.env_uniforms(seed, iteration, depths, n, dev) if use_env_nee else None
+    cells_all = (rng_ops.env_cell_words(seed, iteration, depths, n, dev)
+                 if use_env_nee and envmap_ops.needs_cell_words(env) else None)
     options = dict(gather_mode=config.gather_mode, sky_strength=config.sky_strength,
                    enable_refraction=config.enable_refraction, env=env)
     radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -270,7 +273,8 @@ def trace_sample(
             if use_area_nee:
                 nee = NEEInputs(sampler=light_sampler, shadow_isect=shadow, uniforms=nee_u)
             if use_env_nee:
-                env_nee = EnvNEEInputs(env=env, shadow_isect=shadow, uniforms=env_all[d])
+                env_nee = EnvNEEInputs(env=env, shadow_isect=shadow, uniforms=env_all[d],
+                                       cell_words=None if cells_all is None else cells_all[d])
             paths, contrib, prev_pdf = shade_step(
                 paths, hit, scene.materials, uniforms, d, config.rr_start_depth,
                 nee=nee, prev_pdf=prev_pdf, env_nee=env_nee, **options,

@@ -118,6 +118,51 @@ function multipart() {
 </script></body></html>"""
 
 
+_WS_RECV = 4096  # bytes a WebSocket drain reads at most per call
+
+
+class ClientFrames:
+    """The frames of a WebSocket client's byte stream (RFC 6455 §5.2), fed
+    as ``recv`` returns it: a frame's header (FIN, opcode, mask bit, a 7-,
+    16- or 64-bit payload length, the masking key) may span calls, and its
+    payload, skipped unread, may span many. The JAX package's drain reads
+    the opcode from the first byte of each ``recv``, so a payload byte
+    there can end the session and a close frame later in a chunk is missed
+    (a deliberate deviation: the port parses)."""
+
+    def __init__(self):
+        self._head = b""  # the bytes of a header not yet whole
+        self._frame = None  # (fin, opcode) of the frame whose payload is read
+        self._skip = 0  # its payload bytes still to come
+
+    def feed(self, data: bytes) -> list:
+        """(fin, opcode) of each frame that ``data`` completes, in order."""
+        out = []
+        while data:
+            if self._skip:
+                k = min(self._skip, len(data))
+                self._skip -= k
+                data = data[k:]
+                if not self._skip:
+                    out.append(self._frame)
+                continue
+            head = self._head + data
+            data = b""
+            n = head[1] & 0x7F if len(head) >= 2 else 0
+            ext = 2 if n == 126 else 8 if n == 127 else 0
+            size = 2 + ext + (4 if len(head) >= 2 and head[1] & 0x80 else 0)
+            if len(head) < size:
+                self._head = head
+                break
+            if ext:
+                n = int.from_bytes(head[2:2 + ext], "big")
+            self._head, self._frame, self._skip = b"", (bool(head[0] & 0x80), head[0] & 0x0F), n
+            data = head[size:]
+            if not n:
+                out.append(self._frame)
+        return out
+
+
 class PreviewServer:
     """Drives a Renderer in a background thread and serves frames + controls."""
 
@@ -151,7 +196,9 @@ class PreviewServer:
         self._denoise = False
         self._aovs = None
         self._aovs_gen = -1
-        self._frame_times: list = []  # recent distinct-frame timestamps
+        # (frame key, timestamp) of the recent distinct frames, whichever
+        # encoder made each first
+        self._frame_times: list = []
         self._raw_cache = ((-1, -1), b"")  # (frame key, ws payload)
 
     # ── render loop (the mainLoop/runCuda analog) ──
@@ -195,13 +242,9 @@ class PreviewServer:
         else:
             img = self.renderer.display_image()[:, ::-1, :]
         png = encode_png(img, compress_level=1)
-        import time as _time
-
         with self._lock:
             self._frame_cache = (key, png)
-            self._frame_times.append(_time.monotonic())
-            if len(self._frame_times) > 20:
-                self._frame_times = self._frame_times[-20:]
+            self._time_frame(key)
         return key, png
 
     def frame_png(self) -> bytes:
@@ -234,14 +277,21 @@ class PreviewServer:
             )
             + rgba.tobytes()
         )
-        import time as _time
-
         with self._lock:
             self._raw_cache = (key, payload)
-            self._frame_times.append(_time.monotonic())
-            if len(self._frame_times) > 20:
-                self._frame_times = self._frame_times[-20:]
+            self._time_frame(key)
         return key, payload
+
+    def _time_frame(self, key) -> None:
+        """Under the lock: one timestamp per frame key. The PNG and the raw
+        encoder each make the frame of a key once; with a client of each
+        kind connected both make it, and it is one frame on the display (the
+        JAX package times it in both, so its fps counts it twice)."""
+        import time as _time
+
+        if all(k != key for k, _ in self._frame_times):
+            self._frame_times.append((key, _time.monotonic()))
+            del self._frame_times[:-20]
 
     def _denoised_display(self, camera_gen: int):
         """uint8 gamma view of the denoised accumulator mean, filtered on
@@ -264,7 +314,7 @@ class PreviewServer:
         """Distinct preview frames served per second (the ImGui framerate
         analog, `src/preview.cpp:221`)."""
         with self._lock:
-            ts = list(self._frame_times)
+            ts = [t for _, t in self._frame_times]
         if len(ts) < 2 or ts[-1] <= ts[0]:
             return 0.0
         return (len(ts) - 1) / (ts[-1] - ts[0])
@@ -410,15 +460,17 @@ class PreviewServer:
                     self.wfile.flush()
 
                 last = None
+                frames = ClientFrames()
                 try:
                     while not server._stop.is_set():
                         # drain client frames without blocking the push
-                        # loop; a close frame (opcode 8) ends the session.
-                        # (Browsers don't ping; anything else is ignored.)
+                        # loop; a whole close frame (opcode 8) ends the
+                        # session. (Browsers don't ping; anything else is
+                        # ignored.)
                         self.connection.settimeout(0.001)
                         try:
-                            buf = self.connection.recv(1024)
-                            if not buf or (buf[0] & 0x0F) == 0x8:
+                            buf = self.connection.recv(_WS_RECV)
+                            if not buf or any(op == 0x8 for _, op in frames.feed(buf)):
                                 break
                         except (_socket.timeout, BlockingIOError):
                             pass

@@ -210,15 +210,22 @@ def agreement(got, want):
     return f"share >1e-3 {float((diff > 1e-3).float().mean()):.2e}, max |d| {float(diff.max()):.3e}"
 
 
-def scene(name, aperture=False):
+def scene(name, aperture=False, repeat=1):
+    """``name`` at RES; with ``repeat`` its map's texels each repeated
+    ``repeat`` x ``repeat`` (chip_smoke.py's large maps)."""
     text = open(os.path.join(SCENES, name)).read()
     text = text.replace("RES         800 800", f"RES         {RES[0]} {RES[1]}")
     if aperture:
         text = text.replace("LOOKAT", "APERTURE    0.3\nLOOKAT", 1)
-    return Scene.from_desc(parse_scene(text, base_dir=SCENES), "cpu")
+    desc = parse_scene(text, base_dir=SCENES)
+    if repeat > 1:
+        desc.env_image = np.repeat(np.repeat(desc.env_image, repeat, 0), repeat, 1)
+    return Scene.from_desc(desc, "cpu")
 
 
-# (scene file, lens, config, samples); "tiles" cases run the tile dispatch
+# (scene file, lens, config, samples[, map texel repeat]); "tiles" cases run
+# the tile dispatch; the "-512x1024" / "-2048x4096" cases take the meadow
+# map's texels repeated 4 x 4 / 16 x 16, past the alias draw's 2^15 split
 CASES = {
     "main": ("cornell.txt", False, dict(sampler="sobol"), 3),
     "aa": ("cornell.txt", False, dict(antialias=True), 3),
@@ -231,6 +238,8 @@ CASES = {
     "throughput": ("cornell.txt", False, dict(gather_mode="throughput"), 3),
     "env-exact": ("env_spheres.txt", False, dict(), 3),
     "env-nee": ("env_spheres.txt", False, dict(nee=True), 3),
+    "env-nee-512x1024": ("env_spheres.txt", False, dict(nee=True), 3, 4),
+    "env-nee-2048x4096": ("env_spheres.txt", False, dict(nee=True), 2, 16),
     "split": ("env_spheres.txt", False, dict(env_mode="split"), 3),
     "main-slice": ("cornell.txt", False, dict(sampler="sobol"), 3),
     "nee-slice": ("cornell_golden.txt", False, dict(nee=True, antialias=True, sampler="sobol"),
@@ -256,8 +265,8 @@ def main() -> int:
         libs["parent"] = build(os.path.join(args.parent, mk.SOURCE), False)
     ok = True
     for name in args.cases or list(CASES):
-        file, lens, cfg, samples = CASES[name]
-        sc = scene(file, lens)
+        file, lens, cfg, samples, *repeat = CASES[name]
+        sc = scene(file, lens, *repeat)
         config = RenderConfig(**cfg)
         opts = mk.kernel_options(config, sc)
         packed = mk.pack_scene(sc, nee=opts.nee, config=config)

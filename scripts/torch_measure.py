@@ -2,7 +2,8 @@
 """Measure the PyTorch/CUDA port's kernels on one CUDA card.
 
     python3 scripts/torch_measure.py [--out build/torch_measure.json]
-        [--legs megakernel,ab,schedule,env,mesh,mesh-kernels,mesh-host,fast,reference,maps]
+        [--legs megakernel,ab,schedule,env,rows,envgate,mesh,mesh-kernels,mesh-host,fast,
+                reference,maps]
         [--parent DIR [--diag DIR,...] [--diag-edits NAME,...] [--ab-flags="-DX;-DY"]
          [--rounds N]]
         [--cases REGEX]
@@ -35,6 +36,21 @@ turns: rays/s of each lap, and one profiled lap each (the megakernel's
 device time, the other kernels' device time and launches, the idle share);
 then env NEE's row build of one step (1,600 rows) and one launch (400):
 device time, host time, kernels launched.
+
+The rows leg (``--legs rows``, not in the default): env NEE's row kernel
+(``pt_env_rows``) of one 200-sample step (1,600 rows) and one 50-sample
+launch under env_spheres.txt's meadow map and the map's texels repeated
+4 x 4 and 16 x 16 (512x1024, 2048x4096), of this checkout and, with
+``--parent``, of the parent's, in turns (parent, change, change, parent,
+``--rounds`` times): the median of 20 launches (CUDA events) a turn, and
+whether the two sides' rows are bit-identical.
+
+The envgate leg (``--legs envgate``, not in the default): chip_smoke.py's
+env-NEE bracket (``env_nee_bracket``: env NEE's channel means against the
+exact estimator's at depth 8 and 9) on env_spheres.txt under the meadow
+map at 128x256, 512x1024 and 2048x4096 (texels repeated as phase 27
+repeats them), at render(1000) for seeds 0-15, then at chip_smoke's
+ENV_NEE_GATE_SPP for seed 0: each seed's gaps, their mean and spread.
 
 ``--cases REGEX`` restricts the ab and schedule legs to the cases it
 matches; ``--diag-edits NAME,...`` makes each diagnostic copy of
@@ -713,10 +729,12 @@ def main() -> int:
                          "whose names it matches")
     ap.add_argument("--legs", default="megakernel,mesh",
                     help="comma-separated: megakernel, ab (the A/B alone, with --parent), "
-                         "schedule, env, mesh, mesh-kernels, mesh-host, fast, reference, maps")
+                         "schedule, env, rows, envgate, mesh, mesh-kernels, mesh-host, fast, "
+                         "reference, maps")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
-    if not legs or legs - {"megakernel", "ab", "schedule", "env", "mesh", "mesh-kernels",
+    if not legs or legs - {"megakernel", "ab", "schedule", "env", "rows", "envgate", "mesh",
+                           "mesh-kernels",
                            "mesh-host", "fast", "reference", "maps"}:
         ap.error(f"unknown legs {args.legs!r}")
     if not torch.cuda.is_available():
@@ -729,6 +747,10 @@ def main() -> int:
         measure_schedule(device, out, args.cases)
     if "env" in legs:
         measure_env(device, out, args.parent)
+    if "rows" in legs:
+        measure_rows(device, out, args.parent, args.rounds)
+    if "envgate" in legs:
+        measure_env_gate(device, out)
     if ("megakernel" in legs or "ab" in legs) and args.parent:
         extra = [tuple(f.split()) for f in args.ab_flags.split(";") if f.strip()]
         diag = [d for d in args.diag.split(",") if d.strip()]
@@ -1173,6 +1195,74 @@ def measure_env(device, out, parent_root=None):
             print(f"env rows {side} {samples} samples: "
                   + json.dumps(result[f"rows {side} {samples}"]), flush=True)
     out["env_legs"] = result
+
+
+def measure_rows(device, out, parent_root=None, rounds=1):
+    """The rows leg (the module's docstring): env NEE's row kernel under the
+    meadow map at 128x256, 512x1024 and 2048x4096, this checkout against
+    ``parent_root``'s package in turns."""
+    pkgs = {"change": sys.modules[PACKAGE]}
+    if parent_root:
+        pkgs = {"parent": load_package(parent_root, "parent_pkg"), **pkgs}
+    env_path = os.path.join(REPO, "scenes", "env_spheres.txt")
+    result = {}
+    for repeat in (1,) + ENV_MAP_REPEATS:
+        sides = {}
+        for side, pkg in pkgs.items():
+            kmod = importlib.import_module(pkg.__name__ + ".ops.cuda.megakernel")
+            desc = pkg.load_scene_desc(env_path)
+            desc.env_image = np.repeat(np.repeat(desc.env_image, repeat, 0), repeat, 1)
+            sc = pkg.Scene.from_desc(desc, device)
+            cfg = pkg.RenderConfig(nee=True)
+            opts = kmod.kernel_options(cfg, sc)
+            sides[side] = (kmod, kmod.pack_scene(sc, nee=opts.nee, config=cfg), opts.trace_depth)
+        size = f"{128 * repeat}x{256 * repeat}"
+        for samples in (200, CHUNK):
+            laps = {side: [] for side in sides}
+            for _ in range(rounds):
+                for side in list(sides) + list(sides)[::-1]:
+                    kmod, pk, depth = sides[side]
+                    laps[side].append(time_launches(
+                        lambda: kmod.env_nee_rows(pk, SEED, 1, samples, depth), REPS)["median"])
+            rows = {side: kmod.env_nee_rows(pk, SEED, 1, samples, depth)
+                    for side, (kmod, pk, depth) in sides.items()}
+            result[f"{size} {samples}"] = dict(
+                rows=samples * depth, median_ms=laps,
+                bit_identical=(torch.equal(rows["parent"], rows["change"]) if parent_root
+                               else None))
+            print(f"rows {size} {samples} samples: " + json.dumps(result[f"{size} {samples}"]),
+                  flush=True)
+        del sides
+    out["env_rows"] = result
+
+
+def measure_env_gate(device, out, seeds=16):
+    """The envgate leg (the module's docstring)."""
+    import chip_smoke
+
+    scene_path = lambda name: os.path.join(REPO, "scenes", name)  # noqa: E731
+    result = {}
+    for repeat in (1,) + ENV_MAP_REPEATS:
+        size = f"{128 * repeat}x{256 * repeat}"
+        scene = Scene.from_desc(chip_smoke.big_map_desc(scene_path, repeat), device)
+        gaps = []
+        for seed in range(seeds):
+            *_, below, above = chip_smoke.env_nee_bracket(scene, seed, device, 1000)
+            gaps.append((below, above))
+        *_, below, above = chip_smoke.env_nee_bracket(scene, 0, device,
+                                                      chip_smoke.ENV_NEE_GATE_SPP)
+        g = np.asarray(gaps)
+        result[size] = dict(
+            below_depth8=g[:, 0].tolist(), above_depth9=g[:, 1].tolist(),
+            mean=g.mean(0).tolist(), std=g.std(0, ddof=1).tolist(),
+            seed0_gate_spp=dict(spp=chip_smoke.ENV_NEE_GATE_SPP, below_depth8=below,
+                                above_depth9=above))
+        print(f"envgate {size}: " + json.dumps(dict(
+            mean=result[size]["mean"], std=result[size]["std"],
+            seed0_gate_spp=result[size]["seed0_gate_spp"],
+            max_above=float(g[:, 1].max()), max_below=float(g[:, 0].max()))), flush=True)
+        del scene
+    out["env_gate"] = result
 
 
 def measure_megakernel(device, out):

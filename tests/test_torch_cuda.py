@@ -549,11 +549,10 @@ def _row_case(kind, device, tmp_path):
 @pytest.mark.parametrize("kind", ["meadow", "sun"])
 def test_cuda_env_row_kernel_matches_plain_version(kind, cuda, tmp_path):
     """The row kernel's [S·D, 8 + 6·G] rows of one 200-sample step against
-    its plain version on the card: the drawn texels (the pdf column) equal,
-    the directions and radiance within 1e-6 relative (both round each
-    operation alone and call the same acosf/atan2f/sinf/cosf; the largest
-    |Δ| of every column is printed, with -s), and the table bit for bit the
-    plain table of the kernel's own directions. One launch, counted."""
+    its plain version on the card: bit for bit (both round each operation
+    alone and call the same acosf/atan2f/sinf/cosf; the largest |Δ| of
+    every column is printed, with -s), the table the plain table of the
+    kernel's own directions. One launch, counted."""
     scene, opts, packed = _row_case(kind, cuda, tmp_path)
     launches = tmk.KERNEL.row_launches
     got = tmk.env_nee_rows(packed, 7, 51, 200, opts.trace_depth)
@@ -564,8 +563,7 @@ def test_cuda_env_row_kernel_matches_plain_version(kind, cuda, tmp_path):
     diff = (got - want).abs().amax(dim=0)
     print(f"row kernel vs plain, {kind}: max |d| per column {diff[:8].tolist()}, "
           f"bit-identical {torch.equal(got, want)}")
-    assert torch.equal(got[:, 6:8], want[:, 6:8])
-    torch.testing.assert_close(got[:, :6], want[:, :6], rtol=1e-6, atol=1e-7)
+    assert torch.equal(got, want)
     table = tmk.env_row_table(packed, got[:, :3]).reshape(got.shape[0], -1)
     assert torch.equal(got[:, 8:], table)
     # keyed by absolute iteration: a launch's slice is its own rows
@@ -662,7 +660,10 @@ def test_cuda_large_maps_render_in_kernel(case, size, cuda):
     """Maps past the JAX kernel's cap render in the port's kernel: K3
     (exact) and K6 (the tile dispatch, 4 tiles, exact) bit for bit their
     plain version, K4 (env NEE, its rows from the row kernel) within the
-    kernel-vs-plain bound; 64x64, depth 8, 2 samples, the launch counted."""
+    kernel-vs-plain bound; 64x64, depth 8, 2 samples, the launch counted.
+    Under env NEE the row kernel is bit for bit its plain version over a
+    200-sample step (past 2^15 texels both take the alias cell from a
+    64-bit word of its own)."""
     scene = big_map_scene(*size, cuda)
     config = RenderConfig(nee=case == "env-nee", sampler="sobol" if case == "tiles" else
                           "independent")
@@ -687,6 +688,8 @@ def test_cuda_large_maps_render_in_kernel(case, size, cuda):
     assert float(got.mean()) > 0.0
     if case == "env-nee":
         assert_matches_plain_version(got.cpu().numpy(), want.cpu().numpy())
+        step = tmk.env_nee_rows(packed, 7, 1, 200, opts.trace_depth)
+        assert torch.equal(step, tmk.env_nee_rows_reference(packed, 7, 1, 200, opts.trace_depth))
     else:
         assert torch.equal(got, want)
 

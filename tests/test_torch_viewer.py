@@ -2,7 +2,10 @@
 zoom, pan, recenter and rebuilt camera against the JAX package's numbers
 (tests/test_viewer_cli.py's sequence), and ``PreviewServer``: frames, a
 camera control that resets the accumulation, the CSRF and host guards, one
-WebSocket frame and the denoise toggle.
+WebSocket frame and the denoise toggle; two deliberate deviations from the
+JAX server, which keeps both faults: a frame that both encoders make is
+timed once for the fps, and the WebSocket drain parses the client's frames,
+so only a whole close frame ends a session.
 """
 
 import base64
@@ -30,6 +33,7 @@ from cosc_4397_pathtracing_raytracing_project_tpu_torch.viewer import (
     OrbitCameraController,
     PreviewServer,
 )
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.viewer.server import ClientFrames
 
 from test_render import CORNELL_SMALL
 
@@ -160,33 +164,122 @@ def test_preview_server_frames_and_controls(server):
         assert err.value.code == 403
 
 
+def _ws_connect(server):
+    """A socket past the RFC 6455 handshake (the accept digest checked) and
+    the bytes read after it."""
+    key = base64.b64encode(os.urandom(16)).decode()
+    s = socket.create_connection(("127.0.0.1", server.port), timeout=60)
+    s.sendall((f"GET /ws HTTP/1.1\r\nHost: 127.0.0.1:{server.port}\r\n"
+               "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+               f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode())
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        buf += s.recv(4096)
+    head, buf = buf.split(b"\r\n\r\n", 1)
+    assert b" 101 " in head.split(b"\r\n")[0]
+    accept = base64.b64encode(hashlib.sha1(
+        (key + "258EAFA5-E914-47DA-95CA-C5AB0DC85B11").encode()).digest())
+    assert accept in head
+    return s, buf
+
+
+def _ws_frame(s, buf):
+    """The next server frame: (payload, the bytes read after it)."""
+    def more():
+        data = s.recv(65536)
+        assert data, "the server closed the session"
+        return data
+
+    while len(buf) < 4:
+        buf += more()
+    assert buf[0] == 0x82 and buf[1] & 0x7F == 126  # FIN + binary, 16-bit length
+    n = struct.unpack("!H", buf[2:4])[0]
+    while len(buf) < 4 + n:
+        buf += more()
+    return buf[4:4 + n], buf[4 + n:]
+
+
+def _masked(opcode, payload, mask=b"\x00\x00\x00\x00"):
+    """A client frame: FIN, ``opcode``, the mask bit and key, the shortest
+    length field, the masked payload."""
+    n = len(payload)
+    if n < 126:
+        head = struct.pack("!BB", 0x80 | opcode, 0x80 | n)
+    elif n < 1 << 16:
+        head = struct.pack("!BBH", 0x80 | opcode, 0x80 | 126, n)
+    else:
+        head = struct.pack("!BBQ", 0x80 | opcode, 0x80 | 127, n)
+    return head + mask + bytes(b ^ mask[i % 4] for i, b in enumerate(payload))
+
+
 def test_preview_websocket_frame(server):
     """RFC 6455 handshake with the right accept digest, then one binary
     frame: the (w, h, camera_gen, iteration) header and w·h RGBA bytes."""
-    key = base64.b64encode(os.urandom(16)).decode()
-    s = socket.create_connection(("127.0.0.1", server.port), timeout=60)
+    s, buf = _ws_connect(server)
     try:
-        s.sendall((f"GET /ws HTTP/1.1\r\nHost: 127.0.0.1:{server.port}\r\n"
-                   "Upgrade: websocket\r\nConnection: Upgrade\r\n"
-                   f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n").encode())
-        buf = b""
-        while b"\r\n\r\n" not in buf:
-            buf += s.recv(4096)
-        head, buf = buf.split(b"\r\n\r\n", 1)
-        assert b" 101 " in head.split(b"\r\n")[0]
-        accept = base64.b64encode(hashlib.sha1(
-            (key + "258EAFA5-E914-47DA-95CA-C5AB0DC85B11").encode()).digest())
-        assert accept in head
-        while len(buf) < 4:
-            buf += s.recv(65536)
-        assert buf[0] == 0x82 and buf[1] & 0x7F == 126  # FIN + binary, 16-bit length
-        n = struct.unpack("!H", buf[2:4])[0]
-        while len(buf) < 4 + n:
-            buf += s.recv(65536)
-        payload = buf[4:4 + n]
+        payload, _ = _ws_frame(s, buf)
         w, h, _, _ = struct.unpack("<IIII", payload[:16])
-        assert (w, h) == (64, 64) and n == 16 + w * h * 4 and payload[19] == 255
-        s.sendall(struct.pack("!BB4s", 0x88, 0x80, b"\x00\x00\x00\x00"))  # close
+        assert (w, h) == (64, 64) and len(payload) == 16 + w * h * 4 and payload[19] == 255
+        s.sendall(_masked(0x8, b""))  # close
+    finally:
+        s.close()
+
+
+def test_a_frame_made_by_both_encoders_is_timed_once():
+    """The PNG and the raw encoder at one (camera gen, iteration, denoise)
+    key: one timestamp, whichever encodes first; a new key adds one."""
+    desc = parse_scene(CORNELL_SMALL)
+    r = Renderer(desc, RenderConfig(trace_depth=2, samples_per_launch=1), device="cpu")
+    srv = PreviewServer(r, lookat=desc.camera.lookat, host="127.0.0.1", port=0)
+    r.step(1)
+    key_png, _ = srv.frame_png_keyed()
+    key_raw, _ = srv.frame_raw_keyed()
+    assert key_png == key_raw and len(srv._frame_times) == 1
+    srv.frame_png_keyed()
+    assert len(srv._frame_times) == 1
+    r.step(1)
+    key_raw, _ = srv.frame_raw_keyed()
+    key_png, _ = srv.frame_png_keyed()
+    assert key_png == key_raw and [k for k, _ in srv._frame_times] == [
+        (0, 1, False), (0, 2, False)]
+    assert srv.display_fps() > 0.0
+
+
+@pytest.mark.parametrize("length", [0, 125, 126, 65535, 65536, 200_000])
+def test_client_frames_parse_every_length_field(length):
+    """Masked frames of 7-, 16- and 64-bit lengths, fed in pieces of 1 to
+    5,000 bytes, each frame whole once its last payload byte is in; a
+    payload of 0x88 bytes is payload, not a close."""
+    stream = (_masked(0x2, b"\x88" * length, b"\x01\x02\x03\x04")
+              + _masked(0x9, b"\x88") + _masked(0x8, b"\x03\xe8"))
+    rng = np.random.default_rng(length)
+    frames, got, pos = ClientFrames(), [], 0
+    while pos < len(stream):
+        step = int(rng.integers(1, 5000))
+        got += frames.feed(stream[pos:pos + step])
+        pos += step
+    assert got == [(True, 0x2), (True, 0x9), (True, 0x8)]
+    assert ClientFrames().feed(stream[:-1]) == [(True, 0x2), (True, 0x9)]
+
+
+def test_websocket_payload_bytes_do_not_end_the_session(server):
+    """A masked binary frame longer than several of the drain's reads, its
+    payload (mask 0) all 0x88, the close frame's first byte: the session
+    stays open and pushes the frame of a camera move; a close frame then
+    ends it (the server closes the connection)."""
+    s, buf = _ws_connect(server)
+    try:
+        payload, buf = _ws_frame(s, buf)
+        gen = struct.unpack("<IIII", payload[:16])[2]
+        s.sendall(_masked(0x2, b"\x88" * 20_000))
+        time.sleep(0.3)  # the drain reads it while the push loop idles
+        _post(f"http://127.0.0.1:{server.port}", {"type": "orbit", "dx": 40, "dy": 0})
+        while struct.unpack("<IIII", payload[:16])[2] == gen:
+            payload, buf = _ws_frame(s, buf)
+        s.sendall(_masked(0x8, b"\x03\xe8"))
+        deadline = time.monotonic() + 30.0
+        while s.recv(65536):  # frames pushed before the close is read
+            assert time.monotonic() < deadline, "the close frame did not end the session"
     finally:
         s.close()
 
