@@ -1,0 +1,7 @@
+"""The megakernel's share of its roofline over the interactive window (%)."""
+
+from ptbench.roofline import window_share
+
+
+def read(ctx):
+    return window_share(ctx) if ctx.cell.traffic["kind"] == "interactive" else None

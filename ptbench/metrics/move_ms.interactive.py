@@ -1,0 +1,9 @@
+"""Mean host milliseconds of a camera move: from ``set_camera`` until the
+moved frame's step has been queued (the scene's repack included)."""
+
+import statistics
+
+
+def read(ctx):
+    moves = ctx.spans.durations("move")
+    return 1e3 * statistics.fmean(moves) if moves else None
