@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .build import NVCC_FLAGS, load
+from ...render import profiling
 from .. import camera as camera_ops
 from .. import envmap as envmap_ops
 from ..intersect import intersect_scene
@@ -221,6 +222,8 @@ class PackedScene:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
+    """A scene table's copy to the host (a wait for the device)."""
+    profiling.count("host_syncs")
     return t.detach().cpu().numpy()
 
 

@@ -11,8 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from ..render import profiling
+
 
 def _denominator(accum: torch.Tensor, iteration) -> torch.Tensor:
+    profiling.count("host_syncs")  # a host scalar copied to the device
     it = torch.as_tensor(iteration, dtype=torch.float32, device=accum.device)
     return torch.clamp_min(it, 1.0)
 
@@ -20,6 +23,7 @@ def _denominator(accum: torch.Tensor, iteration) -> torch.Tensor:
 def display_image(accum: torch.Tensor, iteration) -> torch.Tensor:
     """[H, W, 3] or [N, 3] accumulator → uint8 with gamma 2.2."""
     pix = accum / _denominator(accum, iteration)
+    profiling.count("host_syncs")
     gamma = torch.tensor(1.0 / 2.2, dtype=torch.float32, device=accum.device)
     pix = torch.pow(torch.clamp_min(pix, 0.0), gamma)
     return torch.clamp(pix * 255.0, 0.0, 255.0).to(torch.uint8)

@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..render import profiling
 from ..scene.structs import (
     Camera,
     camera_basis_from_spherical,
@@ -112,21 +113,23 @@ class OrbitCameraController:
     # ── camera reconstruction (`main.cpp:110-128`) ──
 
     def camera(self) -> Camera:
-        position, view, up, right = camera_basis_from_spherical(
-            self.zoom, self.phi, self.theta, self.lookat
-        )
-        self.changed = False
+        with profiling.span("viewer.camera"):
+            position, view, up, right = camera_basis_from_spherical(
+                self.zoom, self.phi, self.theta, self.lookat
+            )
+            self.changed = False
 
-        def f32(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+            def f32(a):
+                profiling.count("host_syncs")  # a copy from pageable host memory
+                return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
-        return Camera(
-            position=f32(position),
-            view=f32(view),
-            up=f32(up),
-            right=f32(right),
-            pixel_length=f32(self.pixel_length),
-            resolution=(self.width, self.height),
-            aperture=f32(self.aperture),
-            focal=f32(self.zoom if self.focal_auto else self.focal),
-        )
+            return Camera(
+                position=f32(position),
+                view=f32(view),
+                up=f32(up),
+                right=f32(right),
+                pixel_length=f32(self.pixel_length),
+                resolution=(self.width, self.height),
+                aperture=f32(self.aperture),
+                focal=f32(self.zoom if self.focal_auto else self.focal),
+            )

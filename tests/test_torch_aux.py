@@ -43,12 +43,6 @@ def _scene():
     return Scene.from_desc(parse_scene(CORNELL_SMALL), "cpu")
 
 
-def test_profile_stages():
-    stats = profiling.profile_stages(_scene(), RenderConfig(trace_depth=4), reps=2)
-    for k in ("raygen_ms", "rng_ms", "intersect_ms", "shade_ms", "gather_ms"):
-        assert stats[k] >= 0
-
-
 @pytest.mark.parametrize("pipeline", ["auto", "fast", "reference"])
 def test_profile_pipeline(pipeline):
     stats = profiling.profile_pipeline(_scene(), RenderConfig(trace_depth=4, pipeline=pipeline),
@@ -61,7 +55,7 @@ def test_profile_pipeline(pipeline):
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
-        with profiling.annotate("raygen"):
+        with profiling.span("raygen"):
             Renderer(parse_scene(CORNELL_SMALL), RenderConfig(trace_depth=2),
                      device="cpu").step(1)
     assert b"raygen" in (tmp_path / "trace" / "trace.json").read_bytes()

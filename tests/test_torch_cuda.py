@@ -32,6 +32,7 @@ pixels fails it.
 """
 
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -48,6 +49,7 @@ from cosc_4397_pathtracing_raytracing_project_tpu_torch.io.png import write_hdr
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops import fast
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import megakernel as tmk
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.ops.cuda import mesh_kernel as tmesh
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.render import profiling
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.adaptive import make_tile_layout
 from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import (
     make_mesh_intersector,
@@ -57,6 +59,7 @@ from cosc_4397_pathtracing_raytracing_project_tpu_torch.scene import (
     SceneDesc,
     transforms,
 )
+from cosc_4397_pathtracing_raytracing_project_tpu_torch.viewer import OrbitCameraController
 
 torch.set_num_threads(2)
 
@@ -604,6 +607,47 @@ def test_cuda_env_nee_step_builds_its_rows_in_one_launch(cuda, monkeypatch):
     assert tmk.KERNEL.row_launches == rows + 1
     assert tmk.KERNEL.launches_by_variant["env_nee"] == launches + 3  # 50 + 50 + 20 samples
     assert np.isfinite(r.linear_image()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, drag_syncs", [("cornell", 32), ("env-nee", 48)])
+def test_cuda_host_syncs_match_the_sync_debug_mode(case, drag_syncs, cuda):
+    """``host_syncs`` counts every wait of the host in a viewer's drag frame
+    (orbit, ``set_camera``, a step that repacks, ``sync``, the preview) and
+    still frame: each operation torch's sync debug mode warns of, and
+    ``Renderer.sync``'s synchronize, which that mode does not flag."""
+    if case == "cornell":
+        desc, config = parse_scene(_scene_text("cornell.txt")), RenderConfig(sampler="sobol")
+    else:
+        desc = parse_scene(env_spheres_text(), base_dir=_SCENES)
+        config = RenderConfig(nee=True, sampler="sobol")
+    r = Renderer(desc, config, device=cuda)
+    ctl = OrbitCameraController.from_camera(r.scene.camera, lookat=desc.camera.lookat)
+
+    def frame(drag):
+        if drag:
+            ctl.orbit(3.0, 1.0)
+            r.set_camera(ctl.camera())
+        r.step(16, sync=False)
+        r.sync()
+        return r.display_image()
+
+    frame(True)
+    frame(False)
+    got = []
+    for drag in (True, False):
+        before = profiling.counters().get("host_syncs", 0)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                frame(drag)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        flagged = sum("synchronizing" in str(w.message) for w in caught)
+        got.append((profiling.counters()["host_syncs"] - before, flagged))
+    print(f"{case}: (host_syncs, flagged) drag {got[0]}, still {got[1]}")
+    assert got == [(drag_syncs, drag_syncs - 1), (4, 3)]
 
 
 @pytest.mark.cuda

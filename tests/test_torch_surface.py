@@ -14,9 +14,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = os.path.join(REPO, "cosc_4397_pathtracing_raytracing_project_tpu")
 PORT_PKG = os.path.join(REPO, "cosc_4397_pathtracing_raytracing_project_tpu_torch")
 
-# (JAX module, name) -> why the port has no counterpart of that name. Empty:
-# every public name has one.
-EXCEPTIONS: dict = {}
+# (JAX module, name) -> why the port has no counterpart of that name.
+EXCEPTIONS: dict = {
+    ("render/profiling.py", "profile_stages"):
+        "nothing of the port timed the readable pipeline's stages one by one",
+    ("render/profiling.py", "annotate"): "the tracer's span takes its place",
+}
 
 # the driver's entry points beside the package, and their counterparts
 GRAFT_ENTRY = {"entry": "entry.py", "dryrun_multichip": "parallel/dryrun.py"}
