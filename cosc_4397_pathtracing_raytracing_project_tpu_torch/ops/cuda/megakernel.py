@@ -344,21 +344,13 @@ def pack_scene(scene, nee: bool = False, config=None) -> PackedScene:
                 "nee: scene has no analytic (cube/sphere) emissive lights"
             )
         lights = dataclasses.replace(lights, mat=dense[lights.mat])
-    cam = scene.camera
-    cam_vec = np.concatenate(
-        [
-            _host(cam.position), _host(cam.view), _host(cam.right),
-            _host(cam.up), _host(cam.pixel_length),
-            _host(cam.aperture).reshape(1), _host(cam.focal).reshape(1),
-        ]
-    ).astype(np.float32)
     perm = np.full((geo.shape[0], 3), -1, np.int32)
     for k, (_kind, p) in enumerate(static_geom_kinds(scene)):
         if p is not None:
             perm[k] = p
-    w, h = cam.resolution
+    w, h = scene.camera.resolution
     return PackedScene(
-        cam=np.ascontiguousarray(cam_vec),
+        cam=pack_camera(scene.camera),
         geo=np.ascontiguousarray(geo.reshape(-1), np.float32),
         gmat=np.ascontiguousarray(gmat),
         mats=np.ascontiguousarray(mats.reshape(-1)),
@@ -370,6 +362,39 @@ def pack_scene(scene, nee: bool = False, config=None) -> PackedScene:
         lights=lights,
         env=pack_env(scene, config) if config is not None and scene.envmap is not None else None,
     )
+
+
+def pack_camera(camera) -> np.ndarray:
+    """The kernel's camera vector [16] f32: position, view, right, up,
+    pixel_length, aperture, focal, joined on the camera's device and read
+    to the host in one copy (one wait)."""
+    c = camera
+    vec = torch.cat([c.position, c.view, c.right, c.up, c.pixel_length,
+                     c.aperture.reshape(1), c.focal.reshape(1)])
+    return np.ascontiguousarray(_host(vec), np.float32)
+
+
+def with_camera(packed: PackedScene, scene, opts: KernelOptions) -> PackedScene:
+    """``packed`` for ``scene``, which differs from the scene it was packed
+    from only in its camera, at the same resolution (the same geometry,
+    materials and map; ``opts`` their kernel options): the camera vector
+    read anew, and in split mode with the background composited outside
+    the kernel, the new primary rays' background and miss mask. Every other
+    table, the texel table too, is the same object."""
+    env = packed.env
+    if env is not None and opts.bg_external:
+        bg, bg_miss = _split_background(scene)
+        env = dataclasses.replace(env, bg=bg, bg_miss=bg_miss)
+    return dataclasses.replace(packed, cam=pack_camera(scene.camera), env=env)
+
+
+def _split_background(scene) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split mode's background composited outside the kernel: the exact
+    bilinear background [N, 3] of each primary ray of ``scene``'s camera,
+    and [N] f32 1 where that ray misses every primitive."""
+    o3, d3 = camera_ops.generate_rays(scene.camera)
+    bg_miss = intersect_scene(scene, o3, d3).miss.to(torch.float32)
+    return envmap_ops.env_radiance(scene.envmap, d3), bg_miss
 
 
 def pack_env(scene, config) -> EnvTables:
@@ -395,11 +420,7 @@ def pack_env(scene, config) -> EnvTables:
         )
     sh_f = np.array([[np.float32(ch[0] * envmap_ops._SH_C[0])] + list(ch[1:]) for ch in sh],
                     np.float32)
-    bg = bg_miss = None
-    if opts.bg_external:
-        o3, d3 = camera_ops.generate_rays(scene.camera)
-        bg_miss = intersect_scene(scene, o3, d3).miss.to(torch.float32)
-        bg = envmap_ops.env_radiance(env, d3)
+    bg, bg_miss = _split_background(scene) if opts.bg_external else (None, None)
     return EnvTables(
         mode="split", height=h, width=w, envmap=env,
         suns=np.asarray(suns, np.float32).reshape(-1, 6), sh=sh_f, sh_coeffs=sh,

@@ -319,21 +319,34 @@ def make_pallas_step():
     ``PALLAS_CHUNK`` samples (iterations are 1-based, as in the reference)
     and adds each radiance sum into a new accumulator. The scene's host
     tables (with the light table under analytic NEE, and the environment's
-    tables: the split mode's suns, SH and composited background) are
-    derived once per scene object and configuration (``set_camera``
-    replaces the scene, which repacks them). Under env NEE the shared rows
-    of all of a step's iterations, with their per-geom table, are built
-    once, before its first launch (on the card by one launch of the row
-    kernel, ``megakernel.env_nee_rows``), and each launch reads its slice."""
-    packed_key = packed = opts = None
+    tables: the texel table, the split mode's suns, SH and composited
+    background) are packed in full once per geometry, materials, map,
+    resolution and configuration, those objects compared by identity. A
+    scene that shares all of them with the packed one and differs only in
+    its camera (``set_camera`` swaps the camera alone) keeps the packed
+    tables and re-reads only the camera (``megakernel.with_camera``). The
+    ``repack.full`` and ``repack.camera`` counters count the two. Under env
+    NEE the shared rows of all of a step's iterations, with their per-geom
+    table, are built once, before its first launch (on the card by one
+    launch of the row kernel, ``megakernel.env_nee_rows``), and each launch
+    reads its slice."""
+    key = packed_scene = packed = opts = None  # key: (resolution, config, table objects)
 
     def step(scene: Scene, state: RenderState, config: RenderConfig, num_samples: int):
-        nonlocal packed_key, packed, opts
-        if packed_key is None or packed_key[0] is not scene or packed_key[1] != config:
+        nonlocal key, packed_scene, packed, opts
+        tables = (scene.cubes, scene.spheres, scene.materials, scene.envmap, scene.triangles)
+        if (key is None or key[:2] != (scene.camera.resolution, config)
+                or any(a is not b for a, b in zip(key[2], tables))):
             with profiling.span("engine.repack"):
+                profiling.count("repack.full")
                 opts = megakernel.kernel_options(config, scene)
-                packed_key = (scene, config)
                 packed = megakernel.pack_scene(scene, nee=opts.nee, config=config)
+            key, packed_scene = (scene.camera.resolution, config, tables), scene
+        elif scene is not packed_scene:
+            with profiling.span("engine.repack"):
+                profiling.count("repack.camera")
+                packed = megakernel.with_camera(packed, scene, opts)
+            packed_scene = scene
         rows = None
         if opts.env_nee:
             rows = megakernel.env_nee_rows(

@@ -29,7 +29,9 @@ Spans of the interactive path: ``viewer.camera``, ``engine.set_camera``,
 ``engine.sync``, ``engine.display`` and ``engine.readback``. The counter
 ``host_syncs`` counts each place on the step, move and display path where
 the host waits for the device: a read back to the host, a copy from
-pageable host memory to the device, ``Renderer.sync``.
+pageable host memory to the device, ``Renderer.sync``. Inside
+``engine.repack``, ``repack.full`` counts a repack of every table and
+``repack.camera`` one that re-reads only the camera.
 
 ``profile_pipeline`` times the production pipeline a configuration resolves
 to, bounce by bounce; ``trace`` records a ``torch.profiler`` trace. The

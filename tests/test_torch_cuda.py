@@ -610,12 +610,13 @@ def test_cuda_env_nee_step_builds_its_rows_in_one_launch(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case, drag_syncs", [("cornell", 32), ("env-nee", 48)])
+@pytest.mark.parametrize("case, drag_syncs", [("cornell", 12), ("env-nee", 12)])
 def test_cuda_host_syncs_match_the_sync_debug_mode(case, drag_syncs, cuda):
     """``host_syncs`` counts every wait of the host in a viewer's drag frame
-    (orbit, ``set_camera``, a step that repacks, ``sync``, the preview) and
-    still frame: each operation torch's sync debug mode warns of, and
-    ``Renderer.sync``'s synchronize, which that mode does not flag."""
+    (orbit, ``set_camera``, a step that re-reads only the camera, ``sync``,
+    the preview) and still frame: each operation torch's sync debug mode
+    warns of, and ``Renderer.sync``'s synchronize, which that mode does not
+    flag."""
     if case == "cornell":
         desc, config = parse_scene(_scene_text("cornell.txt")), RenderConfig(sampler="sobol")
     else:

@@ -2,10 +2,12 @@
 cost no clock and no profiler record; under ``torch.profiler`` a viewer's
 drag frame and still frame record the interactive path's spans, the repack
 inside the step; the ring's bound and its drops; ``host_syncs`` at the
-sites on the step, move and display path; and ``Renderer.sync``'s wait in
-the metrics' render time.
+sites on the step, move and display path (a move re-reads only the camera,
+a new table repacks every table); and ``Renderer.sync``'s wait in the
+metrics' render time.
 """
 
+import dataclasses
 import time
 
 import pytest
@@ -22,8 +24,10 @@ torch.set_num_threads(2)
 # the host_syncs sites a frame of CORNELL_SMALL (6 cubes, a sphere) passes
 CAMERA_WRITES = 7  # OrbitCameraController.camera: position, view, up, right,
 #                    pixel_length, aperture, focal
-REPACK_READS = 21  # pack_scene: 2 tables of each batch, 2 material-id tables,
-#                    6 material columns, 7 camera tensors, 2 geom-kind tables
+REPACK_READS = 1  # a camera-only repack: the camera vector, read in one copy
+FULL_REPACK_READS = 15  # pack_scene: 2 tables of each batch, 2 material-id
+#                         tables, 6 material columns, the camera vector, 2
+#                         geom-kind tables
 DISPLAY = 3  # the tonemap's two host scalars, then the frame's read-back
 DRAG_SYNCS = CAMERA_WRITES + REPACK_READS + 1 + DISPLAY
 STILL_SYNCS = 1 + DISPLAY
@@ -150,12 +154,34 @@ def test_host_syncs_count_the_sites_of_a_drag_and_a_still_frame():
         before = syncs()
         _frame(r, ctl, drag)
         counts.append(syncs() - before)
-    assert counts == [DRAG_SYNCS, STILL_SYNCS, DRAG_SYNCS] == [32, 4, 32]
+    assert counts == [DRAG_SYNCS, STILL_SYNCS, DRAG_SYNCS] == [12, 4, 12]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         first = profiling.TRACER._next
         _frame(r, ctl, drag=True)
     marks = [x for x in _since(first) if isinstance(x, profiling.Count)]
     assert sum(x.n for x in marks if x.name == "host_syncs") == DRAG_SYNCS
+
+
+def test_host_syncs_count_a_full_repack_on_a_scene_change():
+    """A frame after a new material table: the repack reads every table
+    again, inside its span, and counts as ``repack.full``."""
+    r, _ = _viewer()
+    c = profiling.counters
+    before = c()
+    r.scene = r.scene.replace(materials=dataclasses.replace(r.scene.materials))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        first = profiling.TRACER._next
+        _frame(r, None, drag=False)
+    after = c()
+    assert after["host_syncs"] - before["host_syncs"] == FULL_REPACK_READS + 1 + DISPLAY == 19
+    assert after["repack.full"] - before.get("repack.full", 0) == 1
+    assert after.get("repack.camera", 0) == before.get("repack.camera", 0)
+    recs = _since(first)
+    repack = next(i for i, x in enumerate(recs) if x.name == "engine.repack")
+    inside = [x for x in recs if isinstance(x, profiling.Count)
+              and recs[repack].start_ns <= x.t_ns <= recs[repack].end_ns]
+    assert {x.name: x.n for x in inside if x.name != "host_syncs"} == {"repack.full": 1}
+    assert sum(x.n for x in inside if x.name == "host_syncs") == FULL_REPACK_READS
 
 
 def test_counters_read_the_kernel_launch_counts():
