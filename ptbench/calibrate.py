@@ -25,7 +25,6 @@ import time
 import torch
 
 from . import check, load
-from .reference import scene as ref_scene
 from .manifest import HERE, Manifest
 
 
@@ -39,11 +38,10 @@ def count(config: dict, spp: int, device) -> dict:
     return {k: v / n for k, v in sorted(stats.items()) if k != "primary"}
 
 
-def answers_of(cell, seed: int, n: int):
-    """The first ``n`` answers of a run of the cell on ``seed`` (values left
-    empty), and the drags taken before each."""
-    sc = ref_scene.load("\n".join(cell.config["scene"]))
-    table = check.pixel_table(seed, int(cell.limits["pixels"]), sc.width * sc.height)
+def answers_of(cell, seed: int, n: int, num_pixels: int):
+    """The first ``n`` answers of a run of the cell on ``seed`` over a frame
+    of ``num_pixels`` (values left empty), and the drags taken before each."""
+    table = check.pixel_table(seed, int(cell.limits["pixels"]), num_pixels)
     out, drags = [], []
     if cell.traffic["kind"] == "offline":
         step = int(cell.config["render"]["samples_per_launch"])
@@ -72,11 +70,11 @@ def answers_of(cell, seed: int, n: int):
 
 def control(cell, seed: int, n: int, device) -> dict:
     kind = cell.traffic["kind"]
-    answers, drags = answers_of(cell, seed, n)
+    est = check.estimator(cell.config, device=device)
+    answers, drags = answers_of(cell, seed, n, est.scene.width * est.scene.height)
     low = check.estimator(cell.config, dtype=torch.bfloat16, device=device)
     for i in check.answers_to_check(seed, len(answers), int(cell.limits["answers"])):
         answers[i].values = check.reference_values(low, answers[i], kind, drags, device)
-    est = check.estimator(cell.config, device=device)
     numbers, failed, checked = check.judge(est, kind, answers, cell.limits, seed, drags, device)
     return {"seed": seed, "numbers": numbers, "failed": failed, "checked": checked}
 

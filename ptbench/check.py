@@ -11,6 +11,20 @@ seed, the frame's orbit steps and iterations), with the reference's own
 scene build, alias table, env NEE rows, path sums, accumulation (a step's
 samples summed in order, then added to the accumulator) and tonemapping.
 
+The reference is the module ``reference/<name>.py`` that the
+configuration's ``"reference"`` names (``"trace"`` by default), imported
+after the window. Its ``estimator(config, dtype, device)`` returns an
+object with:
+
+- ``accumulate(render_seed, pixel_ids, launches)``: the [N, 3] float32
+  accumulator of the pixels after the launches [(first iteration,
+  samples), ...], ``render_seed`` being the seed the program was given
+  (how it keys the random streams is the reference's own business);
+- ``scene``, with ``width``, ``height``, ``orbit`` (a
+  ``reference.scene.Orbit``: the first camera's) and ``with_orbit(orbit)``,
+  the scene under another orbit (read for interactive cells only);
+- ``with_scene(scene)``: the estimator over another such scene.
+
 Compared numbers (each against its limit in ``limits/<cell>.json``):
 
 - ``rel_gap`` (offline): the widest gap between a checked pixel channel of
@@ -29,11 +43,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from .meadow import meadow
-from .reference import envmap as ref_envmap
-from .reference import rng as ref_rng
-from .reference import scene as ref_scene
-from .reference import trace as ref_trace
+from . import manifest
 
 REL_FLOOR = 1e-3
 
@@ -70,14 +80,9 @@ def answers_to_check(seed: int, n: int, count: int) -> List[int]:
     return sorted(picked | {n - 1})
 
 
-def estimator(config: dict, dtype=torch.float32, device="cpu") -> ref_trace.Estimator:
-    """The reference's estimator of a configuration, with its map."""
-    scene = ref_scene.load("\n".join(config["scene"]))
-    env = None
-    if "envmap" in config:
-        env = ref_envmap.build(meadow(config["envmap"]["height"]),
-                               config["envmap"]["strength"], device)
-    return ref_trace.Estimator(scene, env, dtype)
+def estimator(config: dict, dtype=torch.float32, device="cpu"):
+    """The estimator of the configuration's reference module."""
+    return manifest.reference_module(config).estimator(config, dtype, device)
 
 
 def display(accum: torch.Tensor, iterations: int) -> torch.Tensor:
@@ -90,20 +95,22 @@ def display(accum: torch.Tensor, iterations: int) -> torch.Tensor:
     return torch.clamp(pix * 255.0, 0.0, 255.0).to(torch.uint8)
 
 
-def viewer_orbit(scene: ref_scene.RefScene) -> ref_scene.Orbit:
-    """The viewer's orbit as it starts from the first frame's camera: its
-    spherical coordinates read back from the float32 camera position."""
+def viewer_orbit(scene):
+    """The viewer's orbit as it starts from the first frame's camera (the
+    reference scene's ``orbit``): its spherical coordinates read back from
+    the float32 camera position."""
+    from .reference.scene import Orbit
+
     position = scene.orbit.basis()[0].astype(np.float64)
     lookat = np.asarray(scene.orbit.lookat, np.float64)
     offset = position - lookat
     zoom = float(np.linalg.norm(offset))
-    return ref_scene.Orbit(zoom=zoom, phi=float(np.arctan2(offset[0], offset[2])),
-                           theta=float(np.arccos(np.clip(offset[1] / zoom, -1.0, 1.0))),
-                           lookat=lookat.copy())
+    return Orbit(zoom=zoom, phi=float(np.arctan2(offset[0], offset[2])),
+                 theta=float(np.arccos(np.clip(offset[1] / zoom, -1.0, 1.0))),
+                 lookat=lookat.copy())
 
 
-def reference_values(est: ref_trace.Estimator, answer: Answer, kind: str, drags=(),
-                     device="cpu") -> np.ndarray:
+def reference_values(est, answer: Answer, kind: str, drags=(), device="cpu") -> np.ndarray:
     """The reference's values at the answer's pixels; ``drags`` [(dx, dy)]
     are the window's orbit steps in order."""
     if kind == "interactive":
@@ -112,7 +119,7 @@ def reference_values(est: ref_trace.Estimator, answer: Answer, kind: str, drags=
             orbit.step(dx, dy, est.scene.width, est.scene.height)
         est = est.with_scene(est.scene.with_orbit(orbit))
     pixels = torch.as_tensor(answer.pixels, device=device)
-    accum = est.accumulate(ref_rng.kernel_seed(answer.seed), pixels, answer.launches)
+    accum = est.accumulate(answer.seed, pixels, answer.launches)
     iterations = sum(k for _b, k in answer.launches)
     if kind == "interactive":
         return display(accum, iterations).cpu().numpy()
@@ -128,7 +135,7 @@ def gaps(kind: str, values: np.ndarray, ref: np.ndarray) -> Dict[str, float]:
     return {"rel_gap": float(np.nan_to_num(rel, nan=np.inf).max())}
 
 
-def judge(est: ref_trace.Estimator, kind: str, answers: List[Answer], limits: dict, seed: int,
+def judge(est, kind: str, answers: List[Answer], limits: dict, seed: int,
           drags=(), device="cpu") -> Tuple[Dict[str, float], int, int]:
     """(widest reading of each number over the checked answers, answers
     failed, answers checked)."""

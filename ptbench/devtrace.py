@@ -44,8 +44,17 @@ class Spans:
                 annotation.__exit__(None, None, None)
             self.records.append((name, t0, t1))
 
-    def durations(self, name: str) -> List[float]:
-        return [t1 - t0 for n, t0, t1 in self.records if n == name]
+    def last(self, name: str) -> Tuple[float, float]:
+        """(start, end) of the last span ``name``."""
+        return next((t0, t1) for n, t0, t1 in reversed(self.records) if n == name)
+
+    def durations(self, name: str, within: Optional[str] = None) -> List[float]:
+        """The seconds of the spans ``name``; with ``within``, of those that
+        start inside the last span of that name."""
+        if within is None:
+            return [t1 - t0 for n, t0, t1 in self.records if n == name]
+        w0, w1 = self.last(within)
+        return [t1 - t0 for n, t0, t1 in self.records if n == name and w0 <= t0 < w1]
 
 
 def short_name(name: str, width: int = 96) -> str:

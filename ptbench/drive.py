@@ -1,8 +1,10 @@
 """One run of a cell: set-up, the measured window, the check, the metrics.
 
-The system under test is the port's ``Renderer`` on the ``"pallas"``
-pipeline (``render/engine.py`` → ``ops/cuda/megakernel.py`` →
-``csrc/megakernel.cu``). The harness drives it as its users do:
+The system under test is the port's ``Renderer`` on the pipeline its
+configuration names (``"pipeline"``, by default ``"pallas"``:
+``render/engine.py`` → ``ops/cuda/megakernel.py`` →
+``csrc/megakernel.cu``); a configuration that resolves to another fails
+the run. The harness drives it as its users do:
 
 - offline: per job ``reset`` and a fresh render state on the job's seed,
   ``step(samples_per_step, sync=False)`` until the job's samples are
@@ -13,10 +15,10 @@ pipeline (``render/engine.py`` → ``ops/cuda/megakernel.py`` →
   preview frame on the host.
 
 Set-up (``setup_s``) runs from the process's start to the window's: the
-imports, the map's generation, the ``Renderer``'s construction
-(``scene_build`` span: parsing, the scene's device tables, the map's alias
-table), the kernels' build or load and one warm-up of every shape the
-window uses.
+imports, the scene text's parse (with a mesh's OBJ files), the map's
+generation, the ``Renderer``'s construction (``scene_build`` span: the
+scene's device tables, a mesh's BVH, the map's alias table), the kernels'
+build or load and one warm-up of every shape the window uses.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 
 from . import check, load, noise
 from .devtrace import WINDOW, DeviceTrace, Spans
-from .manifest import Cell, readers
+from .manifest import ROOT, Cell, readers, setting
 from .meadow import meadow
 
 SPAN_NAMES = ("scene_build", "job", "step", "sync", "readback", "frame", "move", "display")
@@ -41,10 +43,11 @@ SPAN_NAMES = ("scene_build", "job", "step", "sync", "readback", "frame", "move",
 
 def scene_desc(config: dict):
     """The program's scene description of a configuration: its scene text,
-    and the generated map under an environment configuration."""
+    its ``FILE`` lines read from the checkout's root, and the generated map
+    under an environment configuration."""
     from cosc_4397_pathtracing_raytracing_project_tpu_torch.scene.parser import parse_scene
 
-    desc = parse_scene("\n".join(config["scene"]))
+    desc = parse_scene("\n".join(config["scene"]), base_dir=str(ROOT))
     if "envmap" in config:
         desc.env_image = meadow(config["envmap"]["height"])
         desc.env_strength = float(config["envmap"]["strength"])
@@ -59,8 +62,10 @@ def build_renderer(config: dict, seed: int, device, spans: Spans):
     with spans("scene_build"):
         r = Renderer(desc, RenderConfig(**config["render"]), seed=seed, device=device)
         r.sync()
-    if r.pipeline != "pallas":
-        raise RuntimeError(f"the configuration resolved to pipeline {r.pipeline!r}, not 'pallas'")
+    expected = setting(config, "pipeline")
+    if r.pipeline != expected:
+        raise RuntimeError(f"the configuration resolved to pipeline {r.pipeline!r}, "
+                           f"not {expected!r}")
     return r, desc
 
 

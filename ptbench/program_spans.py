@@ -23,7 +23,7 @@ from .devtrace import WINDOW, merge
 
 def window(ctx) -> Tuple[float, float]:
     """The benchmark's window span, (start, end) on ``time.perf_counter``."""
-    return next((t0, t1) for name, t0, t1 in reversed(ctx.spans.records) if name == WINDOW)
+    return ctx.spans.last(WINDOW)
 
 
 def _is_span(record) -> bool:
@@ -66,8 +66,7 @@ def mean_ms(ctx, name: str) -> Optional[float]:
 
 def frames(ctx) -> int:
     """The benchmark's ``frame`` spans that start inside the window."""
-    w0, w1 = window(ctx)
-    return sum(1 for name, t0, _t1 in ctx.spans.records if name == "frame" and w0 <= t0 < w1)
+    return len(ctx.spans.durations("frame", within=WINDOW))
 
 
 def overlap(a: List[Tuple[float, float]], b: List[Tuple[float, float]]) -> float:

@@ -13,7 +13,11 @@ the rest. The image of a pixel is its sample sums added launch by launch in
 ascending iteration order, over the iteration count.
 
 ``dtype`` sets the float type of the path arithmetic (the random streams
-are integer words and stay exact).
+are integer words and stay exact). The random streams are keyed by the
+render seed's int32 word (``rng.kernel_seed``), as the megakernel's are.
+
+The reference of the megakernel's configurations (cubes, spheres, a map):
+:func:`estimator` is the one ``check.estimator`` calls.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from ..meadow import meadow
 from . import envmap, rng
-from .scene import GF, MF, RefScene
+from .scene import GF, MF, RefScene, load
 
 TILE = 2048  # pixels per hash-stream tile: pixel p draws lane p % TILE of tile p // TILE
 N_LD = 2  # leading bounce depths that draw from the Sobol lattice
@@ -475,11 +480,13 @@ class Estimator:
 
     def accumulate(self, seed: int, pixel_ids: torch.Tensor, launches, stats=None):
         """The accumulator [N, 3] f32 of ``pixel_ids`` after ``launches``
-        [(first iteration, samples), ...] of consecutive iterations: each
-        launch sums its samples in ascending iteration order from zero (a
-        path's radiance, then its escape term), and the accumulator adds
-        each launch's sum. ``stats`` (a dict) receives the work counted per
-        kind of event; a launch traces its primary hits once."""
+        [(first iteration, samples), ...] of consecutive iterations on the
+        render seed ``seed``: each launch sums its samples in ascending
+        iteration order from zero (a path's radiance, then its escape term),
+        and the accumulator adds each launch's sum. ``stats`` (a dict)
+        receives the work counted per kind of event; a launch traces its
+        primary hits once."""
+        seed = rng.kernel_seed(seed)
         scene, dtype = self.scene, self.dtype
         dev = pixel_ids.device
         px = Pixels(scene, pixel_ids, dtype)
@@ -513,3 +520,13 @@ class Estimator:
                     accum = accum + acc.to(torch.float32)
                     acc = torch.zeros_like(acc)
         return accum
+
+
+def estimator(config: dict, dtype=torch.float32, device="cpu") -> Estimator:
+    """The estimator of a configuration: its scene text and, under an
+    ``envmap`` entry, the generated map."""
+    env = None
+    if "envmap" in config:
+        env = envmap.build(meadow(config["envmap"]["height"]), config["envmap"]["strength"],
+                           device)
+    return Estimator(load("\n".join(config["scene"])), env, dtype)

@@ -21,7 +21,6 @@ from cosc_4397_pathtracing_raytracing_project_tpu_torch.render.engine import (
 from ptbench import calibrate, check, drive
 from ptbench.meadow import meadow
 from ptbench.reference import envmap as ref_envmap
-from ptbench.reference import rng as ref_rng
 from ptbench_fixtures import small_cell
 
 CELLS = ("cornell.offline", "env4k.offline", "cornell.interactive", "env4k.interactive")
@@ -56,7 +55,7 @@ def test_reference_equals_the_programs_plain_version(name):
     got = r.linear_image().reshape(-1, 3)
     est = check.estimator(cell.config)
     pixels = torch.arange(got.shape[0])
-    accum = est.accumulate(ref_rng.kernel_seed(seed), pixels, [(1, 4), (5, 4)])
+    accum = est.accumulate(seed, pixels, [(1, 4), (5, 4)])  # its int32 word keys the streams
     assert np.array_equal((accum / 8.0).numpy(), got)
 
 
